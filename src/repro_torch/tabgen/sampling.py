@@ -1,0 +1,165 @@
+"""Generation: one class-batched solve per call.
+
+All classes are integrated at once: ``x1`` is ``[n_y, m, p]`` and each solver
+step evaluates the ``[n_y, n_sub]`` forests of that step in one
+:func:`~repro_torch.forest.packed.predict_forest` call. Per-class unscaling
+happens on the device too; padding rows (classes get unequal row counts) are
+dropped on the host afterwards.
+
+``pad_to`` rounds the per-class row budget up to a fixed bucket, as a
+serving host does. Noise is drawn so that padding changes no kept row: x1
+comes in blocks of :data:`NOISE_BLOCK` rows, each from a generator seeded by
+``(seed, class, block)``, so row i's noise depends only on
+``(seed, class, i)`` — a plain ``randn`` of the padded shape would not be
+prefix-stable. The JAX package draws per row with ``fold_in``; the two give
+different numbers, and the parity tests hand both the same x1.
+
+:func:`sample_async` only enqueues device work; :meth:`SampleHandle.result`
+is where the host waits.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import interpolants as itp
+from repro_torch.forest.packed import PackedForest
+from repro_torch.tabgen.artifacts import ForestArtifacts, unscale
+from repro_torch.tabgen.samplers import default_sampler, get_sampler
+
+NOISE_BLOCK = 1024   # rows per x1 block
+
+# noise streams derived from one user seed
+_X1_STREAM, _SOLVE_STREAM, _IMPUTE_STREAM = 0, 1, 2
+
+
+def stream_seed(*words: int) -> int:
+    """A 63-bit generator seed from integer words (seed, stream, …)."""
+    ss = np.random.SeedSequence([w % 2 ** 64 for w in words])
+    return int(ss.generate_state(1, np.uint64)[0]) >> 1
+
+
+def row_noise(seed: int, n_y: int, m: int, p: int, device) -> torch.Tensor:
+    """Standard-normal x1 ``[n_y, m, p]`` whose row i of class c depends only
+    on ``(seed, c, i)``."""
+    blocks = -(-m // NOISE_BLOCK)
+    x1 = torch.empty((n_y, blocks * NOISE_BLOCK, p), dtype=torch.float32,
+                     device=device)
+    gen = torch.Generator(device=device)
+    for c in range(n_y):
+        for b in range(blocks):
+            gen.manual_seed(stream_seed(seed, _X1_STREAM, c, b))
+            x1[c, b * NOISE_BLOCK:(b + 1) * NOISE_BLOCK].normal_(generator=gen)
+    return x1[:, :m].contiguous()
+
+
+def sample_labels(counts: np.ndarray, n: int, rng: np.random.Generator,
+                  mode: str = "label") -> np.ndarray:
+    """Class indices for ``n`` rows. ``label`` = deterministic empirical
+    proportions (paper C.4); ``multinomial`` = iid draws."""
+    counts = np.asarray(counts)
+    if mode == "multinomial":
+        probs = counts / counts.sum()
+        idx = rng.choice(len(counts), size=n, p=probs)
+    else:
+        reps = np.floor(n * counts / counts.sum()).astype(int)
+        rem = n - reps.sum()
+        frac = n * counts / counts.sum() - reps
+        extra = np.argsort(-frac)[:rem]
+        reps[extra] += 1
+        idx = np.repeat(np.arange(len(counts)), reps)
+    idx.sort()
+    return idx
+
+
+def solve_all_classes(feat, thr_val, leaf, x1, mins, maxs, ts, *, solver_fn,
+                      depth: int, n_t: int, multi_output: bool, eps: float,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+    """``[n_t, n_y, ...]`` forests and x1 ``[n_y, m, p]`` -> ``[n_y, m, p]``
+    unscaled samples, every class in one batched solve."""
+    forests = PackedForest(feat, thr_val, leaf, multi_output)
+    x0 = solver_fn(x1, forests, depth=depth, n_t=n_t, ts=ts, eps=eps,
+                   noise=noise, generator=generator)
+    return unscale(x0, mins[:, None, :], maxs[:, None, :])
+
+
+def _resolve_sampler(fcfg, sampler: Optional[str]):
+    """Name -> spec, validated against the artifacts' interpolant family."""
+    name = sampler or default_sampler(fcfg.method, fcfg.diff_sampler)
+    spec = get_sampler(name)
+    if spec.method != fcfg.method:
+        raise ValueError(
+            f"sampler {name!r} integrates {spec.method!r} but artifacts "
+            f"were trained with method={fcfg.method!r}")
+    return name, spec
+
+
+class SampleHandle:
+    """An in-flight :func:`sample`: device work enqueued, host finish
+    deferred. ``result()`` copies the ``[n_y, m, p]`` samples to the host
+    (waiting for the device), unpads and shuffles them exactly as the
+    synchronous path does."""
+
+    def __init__(self, x_dev, per_class, classes, rng):
+        self._x_dev = x_dev
+        self._per_class = per_class
+        self._classes = classes
+        self._rng = rng
+
+    def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        x_all = self._x_dev.cpu().numpy()           # waits: [n_y, m, p]
+        X = np.concatenate([x_all[yi, :c]
+                            for yi, c in enumerate(self._per_class)])
+        y = np.repeat(self._classes, self._per_class)
+        perm = self._rng.permutation(len(X))
+        return X[perm], y[perm]
+
+
+def sample_async(artifacts: ForestArtifacts, n: int, *,
+                 sampler: Optional[str] = None, seed: int = 0,
+                 pad_to: Optional[int] = None) -> SampleHandle:
+    """Enqueue a generate call on the artifacts' device without waiting.
+
+    :func:`sample` is ``sample_async(...).result()``, so both paths give the
+    same rows by construction.
+    """
+    fcfg = artifacts.config
+    _, spec = _resolve_sampler(fcfg, sampler)
+    rng = np.random.default_rng(seed)
+    label_idx = sample_labels(artifacts.counts, n, rng, fcfg.label_sampler)
+    n_y = artifacts.n_y
+    per_class = np.bincount(label_idx, minlength=n_y)
+    m = int(per_class.max())
+    if pad_to is not None:
+        if pad_to < m:
+            raise ValueError(f"pad_to={pad_to} < largest class batch {m}")
+        m = int(pad_to)
+    device = artifacts.device
+    ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff, fcfg.t_schedule,
+                       device=device)
+    x1 = row_noise(seed, n_y, m, artifacts.p, device)
+    generator = None
+    if spec.stochastic:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(stream_seed(seed, _SOLVE_STREAM))
+    x_all = solve_all_classes(
+        artifacts.feat, artifacts.thr_val, artifacts.leaf, x1,
+        artifacts.mins, artifacts.maxs, ts, solver_fn=spec.fn,
+        depth=fcfg.max_depth, n_t=fcfg.n_t, multi_output=fcfg.multi_output,
+        eps=fcfg.eps_diff, generator=generator)
+    return SampleHandle(x_all, per_class, np.asarray(artifacts.classes), rng)
+
+
+def sample(artifacts: ForestArtifacts, n: int, *,
+           sampler: Optional[str] = None, seed: int = 0,
+           pad_to: Optional[int] = None):
+    """Generate ``n`` rows (and their labels) from trained artifacts.
+
+    ``pad_to`` fixes the per-class row bucket (>= the largest per-class
+    request); for the deterministic samplers it changes no row.
+    """
+    return sample_async(artifacts, n, sampler=sampler, seed=seed,
+                        pad_to=pad_to).result()

@@ -1,0 +1,208 @@
+"""The port's tree traversal against the JAX package's.
+
+``repro_torch.kernels.tree_predict.ops.forest_predict`` and
+``repro_torch.forest.packed.predict_forest`` on the CPU (the plain PyTorch
+version) are held against ``repro``'s XLA reference scan and its Pallas
+kernel in interpret mode, on forests trained by the JAX package and on random
+forests with +inf sentinels and threshold ties. The CUDA kernel itself runs
+only on a GPU: its test here skips unless one is present.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.config import ForestConfig
+from repro.data.tabular import two_moons
+from repro.forest.packed import PackedForest as JPackedForest
+from repro.forest.packed import predict_forest as j_predict_forest
+from repro.kernels.tree_predict.ref import forest_predict_ref as j_ref
+from repro.tabgen import fit_artifacts
+from repro_torch.forest.packed import PackedForest, predict_forest
+from repro_torch.kernels.tree_predict.ops import forest_predict
+from repro_torch.kernels.tree_predict.ref import forest_predict_ref
+from repro_torch.tabgen import artifacts_from_numpy
+
+_FIELDS = ("feat", "thr_val", "leaf", "best_round", "rounds_run", "val_curve",
+           "mins", "maxs", "classes", "counts")
+
+
+def to_port(art):
+    """A JAX ForestArtifacts carried across to the port, on the CPU."""
+    return artifacts_from_numpy({f: np.asarray(getattr(art, f)) for f in _FIELDS},
+                                dataclasses.asdict(art.config), "cpu")
+
+
+@pytest.fixture(scope="module")
+def moons():
+    return two_moons(240, seed=0)
+
+
+def _fit(moons, **kw):
+    X, y = moons
+    base = dict(n_t=5, duplicate_k=6, n_trees=8, max_depth=3, n_bins=16,
+                reg_lambda=1.0)
+    base.update(kw)
+    return fit_artifacts(X, y, ForestConfig(**base), seed=0)
+
+
+@pytest.fixture(scope="module")
+def flow_so(moons):
+    return _fit(moons, method="flow")
+
+
+@pytest.fixture(scope="module")
+def flow_mo(moons):
+    return _fit(moons, method="flow", multi_output=True)
+
+
+def random_forest(rng, B, S, T, depth, p, out, n):
+    """Forest and rows on a 1/8 grid (many ties with thresholds) with ~10%
+    +inf sentinels, as numpy arrays."""
+    H, L = 2 ** depth - 1, 2 ** depth
+    x = (np.round(rng.normal(size=(B, n, p)) * 8) / 8).astype(np.float32)
+    feat = rng.integers(0, p, (B, S, T, H)).astype(np.int32)
+    thr = (np.round(rng.uniform(-1, 1, (B, S, T, H)) * 8) / 8).astype(np.float32)
+    thr[rng.random(thr.shape) < 0.1] = np.inf
+    leaf = rng.normal(size=(B, S, T, L, out)).astype(np.float32)
+    return x, feat, thr, leaf
+
+
+# ---------------------------------------------------------------------------
+# predict_forest on trained forests: port (plain) vs JAX xla and pallas
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("n", [1, 64, 97, 130, 300])
+@pytest.mark.parametrize("art_name", ["flow_so", "flow_mo"])
+def test_predict_forest_matches_jax(request, art_name, n, impl):
+    art = request.getfixturevalue(art_name)
+    port = to_port(art)
+    rng = np.random.default_rng(n)
+    x = rng.uniform(-1, 1, (n, art.p)).astype(np.float32)
+    ti, yi = 2, 1
+    jforest = JPackedForest(art.feat[ti, yi], art.thr_val[ti, yi],
+                            art.leaf[ti, yi], art.config.multi_output)
+    ref = np.asarray(j_predict_forest(jnp.asarray(x), jforest,
+                                      art.config.max_depth, impl=impl))
+    got = predict_forest(torch.from_numpy(x)[None], port.class_forest(yi).at(ti),
+                         port.config.max_depth)
+    assert got.shape == (1, n, art.p)
+    np.testing.assert_allclose(got[0].numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("art_name", ["flow_so", "flow_mo"])
+def test_predict_forest_class_batch_matches_per_class_loop(request, art_name):
+    """One call over every class equals one call per class."""
+    port = to_port(request.getfixturevalue(art_name))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(
+        rng.uniform(-1, 1, (port.n_y, 97, port.p)).astype(np.float32))
+    forest = PackedForest(port.feat[3], port.thr_val[3], port.leaf[3],
+                          port.config.multi_output)
+    batched = predict_forest(x, forest, port.config.max_depth)
+    for yi in range(port.n_y):
+        one = predict_forest(x[yi:yi + 1].contiguous(),
+                             port.class_forest(yi).at(3), port.config.max_depth)
+        torch.testing.assert_close(batched[yi], one[0], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# forest_predict on random forests: sentinels, ties, SO and MO layouts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 64, 97, 130, 300])
+@pytest.mark.parametrize("B,S,out", [(3, 1, 5), (2, 4, 1)])   # MO-like, SO-like
+def test_forest_predict_matches_jax_ref_per_forest(B, S, out, n):
+    depth, T, p = 4, 6, 5
+    x, feat, thr, leaf = random_forest(np.random.default_rng(n), B, S, T,
+                                       depth, p, out, n)
+    got = forest_predict(torch.from_numpy(x), torch.from_numpy(feat),
+                         torch.from_numpy(thr), torch.from_numpy(leaf), depth)
+    assert got.shape == (B, S, n, out)
+    for b in range(B):
+        for s in range(S):
+            ref = np.asarray(j_ref(jnp.asarray(x[b]), jnp.asarray(feat[b, s]),
+                                   jnp.asarray(thr[b, s]),
+                                   jnp.asarray(leaf[b, s]), depth))
+            # same tree order, same fp32 sums: equal to the bit
+            np.testing.assert_array_equal(got[b, s].numpy(), ref)
+
+
+def test_inf_threshold_never_goes_right():
+    """+inf is a sentinel: even an +inf feature value stays left (strict >),
+    and nothing is clipped (the Pallas kernel clips to 1e30)."""
+    depth = 2
+    x = torch.tensor([[[np.inf, 2e30], [-1.0, 0.0]]], dtype=torch.float32)
+    feat = torch.zeros((1, 1, 1, 3), dtype=torch.int32)
+    feat[..., 1] = 1
+    thr = torch.tensor([[[[np.inf, 1e30, 0.0]]]], dtype=torch.float32)
+    leaf = torch.arange(4, dtype=torch.float32).reshape(1, 1, 1, 4, 1)
+    out = forest_predict(x, feat, thr, leaf, depth)
+    # row 0: root inf > inf is False -> left; node 1 tests x[1]=2e30 > 1e30
+    # -> right -> leaf 1. row 1: left, then 0.0 > 1e30 False -> leaf 0.
+    assert out.flatten().tolist() == [1.0, 0.0]
+
+
+def test_plain_version_sums_trees_in_order():
+    """The plain version adds tree 0 first, then 1, … in fp32: a sum whose
+    value depends on the order shows it."""
+    depth = 1
+    x = torch.zeros((1, 1, 1))
+    feat = torch.zeros((1, 1, 3, 1), dtype=torch.int32)
+    thr = torch.zeros((1, 1, 3, 1))
+    big, small = 2.0 ** 24, 1.0
+    leaf = torch.tensor([big, small, small]).reshape(1, 1, 3, 1, 1).expand(
+        1, 1, 3, 2, 1).contiguous()
+    out = forest_predict_ref(x, feat, thr, leaf, depth)
+    # ((2^24 + 1) + 1) rounds each step back to 2^24 in fp32
+    assert out.item() == big
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "depth",
+                                 "device"])
+def test_wrapper_rejects_bad_input(bad):
+    x, feat, thr, leaf = (torch.from_numpy(a) for a in random_forest(
+        np.random.default_rng(0), 2, 1, 3, 3, 4, 2, 10))
+    depth = 3
+    if bad == "dtype":
+        feat = feat.long()
+    elif bad == "shape":
+        thr = thr[..., :-1].contiguous()
+    elif bad == "contiguous":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "depth":
+        depth = 4
+    else:
+        x = x.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        forest_predict(x, feat, thr, leaf, depth)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel (needs a GPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the tree_predict kernel has no "
+                    "CPU mode; python3 chip_smoke.py runs it on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 97, 130, 1000])
+@pytest.mark.parametrize("B,S,out", [(3, 1, 37), (2, 37, 1)])
+def test_cuda_kernel_matches_plain(cuda_device, B, S, out, n):
+    depth, T, p = 7, 5, 37
+    arrays = random_forest(np.random.default_rng(n), B, S, T, depth, p, out, n)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    before = forest_predict.launches
+    got = forest_predict(*args, depth)
+    assert forest_predict.launches == before + 1
+    ref = forest_predict_ref(*args, depth)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
