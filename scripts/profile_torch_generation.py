@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one generate call of the PyTorch port goes, on a GPU.
 
-    python3 scripts/profile_torch_generation.py [--out chiprun_out/profile]
+    python3 scripts/profile_torch_generation.py [--out DIR]
 
 Builds the CaloForest photons model of ``chip_smoke.py`` (random seeded
 weights, full width) on the device and, for euler at n=1,000 (bucket 1024)
@@ -14,8 +14,8 @@ and at n=120,000:
   busy share (device time of all kernels / wall time) and the kernels with
   the most device time.
 
-Needs one CUDA device; exits non-zero without one. The full profiler tables
-go to ``--out``.
+Needs one CUDA device; exits non-zero without one. With ``--out DIR`` the
+full profiler tables and the summary are written there too.
 """
 from __future__ import annotations
 
@@ -93,8 +93,7 @@ def trace(gen, n, pad_to):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out",
-                                                  "profile"))
+    ap.add_argument("--out", help="directory for the profiler tables")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_generation: no CUDA device", file=sys.stderr)
@@ -103,7 +102,8 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.config import ForestConfig
 
-    os.makedirs(args.out, exist_ok=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
     print(cs.card_line(), flush=True)
     cfg = ForestConfig(method="flow", n_t=cs.N_T, duplicate_k=20,
                        n_trees=cs.N_TREES, max_depth=cs.DEPTH,
@@ -120,12 +120,14 @@ def main() -> int:
         summary, table = trace(gen, n, pad_to)
         summary["phases_s"] = {k: min(p[k] for p in ph) for k in ph[0]}
         result[key] = summary
-        with open(os.path.join(args.out, f"{key.replace(' ', '_')}.txt"),
-                  "w") as f:
-            f.write(table)
         print(key, json.dumps(summary), flush=True)
-    with open(os.path.join(args.out, "profile.json"), "w") as f:
-        json.dump(result, f, indent=1)
+        if args.out:
+            name = os.path.join(args.out, key.replace(" ", "_") + ".txt")
+            with open(name, "w") as f:
+                f.write(table)
+    if args.out:
+        with open(os.path.join(args.out, "profile.json"), "w") as f:
+            json.dump(result, f, indent=1)
     return 0
 
 

@@ -4,7 +4,7 @@
 library with a plain C interface, loaded through ``ctypes``. The build runs
 at first use, from the source in this package, into ``_build/`` beside it
 (listed in ``.gitignore``); the library's name carries a hash of the source,
-so an edited kernel is rebuilt and concurrent builders never see a partial
+so an edited kernel is rebuilt and concurrent builds never see a partial
 file. Nothing here runs at import: a host without ``nvcc`` imports the
 package and uses the plain PyTorch path.
 """
