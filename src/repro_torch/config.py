@@ -11,8 +11,11 @@ round trip and ignored here:
   device of the tensors picks the tree-predict path: a CPU tensor takes the
   plain PyTorch version, a CUDA tensor the hand-written kernel
   (:mod:`repro_torch.kernels.tree_predict.ops`).
-* ``split_reduce``, ``hist_bf16``, ``int8_codes`` — training-side settings;
-  the port does not train yet.
+* ``split_reduce`` — how the sharded trainer reduces histograms across
+  devices; the port trains on one device.
+
+``hist_bf16`` and ``int8_codes`` steer the port's trainer as they steer the
+JAX package's single-device trainer.
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ class ForestConfig:
     per_class_scalers: bool = True
     label_sampler: str = "label"  # "label" (empirical) | "multinomial"
     t_schedule: str = "uniform"  # | "cosine" (denser near t=0)
-    split_reduce: str = "allreduce"  # training only; kept for the sidecar
-    hist_bf16: bool = False     # training only; kept for the sidecar
-    int8_codes: bool = False    # training only; kept for the sidecar
+    split_reduce: str = "allreduce"  # sharded trainer only; kept for the sidecar
+    hist_bf16: bool = False     # round histograms to bf16 before split search
+    int8_codes: bool = False    # store bin codes at the narrowest int type
     predict_impl: Optional[str] = None  # ignored: the device picks the path
     seed: int = 0

@@ -2,12 +2,15 @@
 
 The tensors' device picks the path. On the CPU it runs the plain PyTorch
 version (:mod:`.ref`); on a CUDA device it launches the hand-written kernel
-(``csrc/tree_predict.cu``, built at first use by :mod:`.build`) on the
-current stream, without a sync, or raises. ``forest_predict.launches``
-counts kernel launches, so a run can show that its main path went through
-the kernel.
+(``csrc/tree_predict.cu``, built at first use by
+:mod:`repro_torch.kernels.build`) on the current stream, without a sync, or
+raises. ``forest_predict.launches`` counts kernel launches, so a run can
+show that its main path went through the kernel.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -16,6 +19,18 @@ from repro_torch.kernels.tree_predict.ref import forest_predict_ref
 MAX_DEPTH = 8          # leaf indices are kept as uint8 in shared memory
 _SMEM_BYTES = 48 * 1024  # default dynamic shared memory a block may use
 _GRID_YZ = 65535       # CUDA's limit on gridDim.y (S) and gridDim.z (B)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load
+    lib = load("tree_predict")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tree_predict_launch.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.tree_predict_launch.restype = i32
+    lib.tree_predict_rows_per_block.argtypes = []
+    lib.tree_predict_rows_per_block.restype = i32
+    return lib
 
 
 def _check(x, feat, thr_val, leaf, depth: int) -> None:
@@ -57,8 +72,8 @@ def forest_predict(x, feat, thr_val, leaf, depth: int):
         return forest_predict_ref(x, feat, thr_val, leaf, depth)
     if x.device.type != "cuda":
         raise ValueError(f"no tree_predict path for device {x.device}")
-    from repro_torch.kernels.tree_predict.build import load
-    lib = load()
+    from repro_torch.kernels.build import check_launch
+    lib = _lib()
     B, n, p = x.shape
     S, T = feat.shape[1], feat.shape[2]
     n_out = leaf.shape[-1]
@@ -75,9 +90,7 @@ def forest_predict(x, feat, thr_val, leaf, depth: int):
             x.data_ptr(), feat.data_ptr(), thr_val.data_ptr(),
             leaf.data_ptr(), y.data_ptr(), B, S, n, p, T, depth, n_out,
             stream)
-    if rc != 0:
-        raise RuntimeError("tree_predict launch failed: "
-                           + lib.tree_predict_error_string(rc).decode())
+    check_launch("tree_predict", rc)
     forest_predict.launches += 1
     return y
 

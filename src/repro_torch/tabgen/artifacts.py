@@ -114,6 +114,50 @@ class ForestArtifacts:
         return PackedForest(self.feat[:, yi:yi + 1], self.thr_val[:, yi:yi + 1],
                             self.leaf[:, yi:yi + 1], self.config.multi_output)
 
+    def extend(self, X, y=None, *, extra_trees: int, **kwargs):
+        """Warm-start continuation: grow every ensemble by ``extra_trees``
+        boosting rounds, reusing this model's scalers and seeded from its
+        trees. Bit-identical to a cold fit run straight to ``n_trees +
+        extra_trees`` on the same data. A delegate to
+        :func:`repro_torch.tabgen.fitting.extend_artifacts` (imported here:
+        fitting imports this module)."""
+        from repro_torch.tabgen.fitting import extend_artifacts
+        return extend_artifacts(self, X, y, extra_trees=extra_trees,
+                                **kwargs)
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_grid_results(cls, results: dict, n_t: int, n_y: int, mins, maxs,
+                          classes, counts, config: ForestConfig,
+                          device: Optional[Device] = None
+                          ) -> "ForestArtifacts":
+        """Stack per-ensemble fit outputs into artifacts.
+
+        ``results`` maps ``(ti, yi)`` to ``{field: np.ndarray}``, one
+        ensemble's :data:`RESULT_FIELDS`; they are stacked to ``[n_t, n_y,
+        ...]`` on the host and moved to ``device`` once.
+        """
+        def stack(field):
+            return np.stack([
+                np.stack([results[(ti, yi)][field] for yi in range(n_y)])
+                for ti in range(n_t)])
+
+        forests = {k: stack(k) for k in RESULT_FIELDS}
+        return cls.from_fit(forests, mins, maxs, classes, counts, config,
+                            device)
+
+    @classmethod
+    def from_fit(cls, forests: dict, mins, maxs, classes, counts,
+                 config: ForestConfig, device: Optional[Device] = None
+                 ) -> "ForestArtifacts":
+        """Bundle host fit outputs; the tensors go to ``device`` (``None``:
+        the GPU, or raise) once, here."""
+        arrays = dict(forests, mins=mins, maxs=maxs, classes=classes,
+                      counts=counts)
+        return artifacts_from_numpy(arrays, dataclasses.asdict(config),
+                                    device)
+
     def to(self, device: Device) -> "ForestArtifacts":
         """The same model with every tensor on ``device``."""
         return dataclasses.replace(self, **{

@@ -1,23 +1,24 @@
-"""TabularGenerator: schema-aware load / generate / impute / save.
+"""TabularGenerator: schema-aware fit / generate / impute / save / load.
 
 The front door for tabular data in the port. Composes:
 
-* :class:`TabularSchema` — categorical columns are one-hot encoded and
-  re-argmaxed after generation, integer columns rounded and clipped;
+* :class:`TabularSchema` — categorical columns are one-hot encoded before
+  fitting and re-argmaxed after generation, integer columns rounded and
+  clipped;
+* :func:`fit_artifacts` — the single-device ensemble trainer;
 * :func:`sample` — the class-batched sampler (registry-selected);
 * :func:`impute` — the bridge-clamped conditional solve;
 * :class:`ForestArtifacts` ``save``/``load`` — the schema rides along in the
-  JSON sidecar, in the JAX package's format.
+  JSON sidecar, in the JAX package's format, so a model trained by either
+  package loads in the other.
 
-    gen = TabularGenerator.load("model")          # onto the GPU
-    Xg, yg = gen.generate(1000, seed=1)
-
-Training is not ported yet: a model comes from the JAX trainer's
-``TabularGenerator.save`` (or :func:`artifacts_from_numpy`).
+    gen = TabularGenerator(ForestConfig(n_t=8), cat_cols=[2], int_cols=[1])
+    gen.fit(X, y).save("model")                    # trains on the GPU
+    Xg, yg = TabularGenerator.load("model").generate(1000, seed=1)
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -25,6 +26,7 @@ from repro_torch.config import ForestConfig
 from repro_torch.core.mixed_types import TabularSchema, _isnan
 from repro_torch.kernels.dispatch import Device
 from repro_torch.tabgen.artifacts import ForestArtifacts
+from repro_torch.tabgen.fitting import fit_artifacts
 from repro_torch.tabgen.imputation import impute as _impute
 from repro_torch.tabgen.sampling import sample_async as _sample_async
 
@@ -42,16 +44,34 @@ class _DecodingHandle:
 
 
 class TabularGenerator:
-    def __init__(self, fcfg: ForestConfig, *,
+    def __init__(self, fcfg: ForestConfig = ForestConfig(), *,
+                 cat_cols: Sequence[int] = (), int_cols: Sequence[int] = (),
                  schema: Optional[TabularSchema] = None):
         self.fcfg = fcfg
-        self.schema = schema
+        self.schema = schema or (TabularSchema(cat_cols, int_cols)
+                                 if (cat_cols or int_cols) else None)
         self.artifacts: Optional[ForestArtifacts] = None
 
     def _require_artifacts(self) -> ForestArtifacts:
         if self.artifacts is None:
-            raise RuntimeError("load() a model first")
+            raise RuntimeError("fit() or load() a model first")
         return self.artifacts
+
+    def fit(self, X, y=None, *, seed: int = 0,
+            checkpoint_dir: Optional[str] = None, resume: bool = False,
+            ensembles_per_batch: int = 0,
+            device: Optional[Device] = None) -> "TabularGenerator":
+        """Train on ``device`` (``None``: the GPU, or raise; ``"cpu"`` runs
+        the plain PyTorch path). A schema one-hot/integer-encodes the raw
+        rows first. The other arguments go to :func:`fit_artifacts`."""
+        if self.schema is not None:
+            self.schema.fit(X)
+            X = self.schema.encode(X)
+        self.artifacts = fit_artifacts(
+            X, y, self.fcfg, seed=seed, checkpoint_dir=checkpoint_dir,
+            resume=resume, ensembles_per_batch=ensembles_per_batch,
+            device=device)
+        return self
 
     def generate(self, n: int, *, sampler: Optional[str] = None,
                  seed: int = 0, pad_to: Optional[int] = None):

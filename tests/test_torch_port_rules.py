@@ -4,8 +4,9 @@ asked for the CPU.
 * No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of the JAX package ``repro``.
 * Importing the port's entry points loads neither.
-* Entry points given ``device=None`` take the GPU and raise where there is
-  none; ``device="cpu"`` runs the plain PyTorch path.
+* Entry points (loading, sampling and training) given ``device=None`` take
+  the GPU and raise where there is none; ``device="cpu"`` runs the plain
+  PyTorch path.
 """
 import ast
 import dataclasses
@@ -22,7 +23,8 @@ import torch
 import repro_torch.kernels.dispatch as dispatch
 from repro_torch.config import ForestConfig
 from repro_torch.kernels.dispatch import resolve_device
-from repro_torch.tabgen import TabularGenerator, artifacts_from_numpy
+from repro_torch.tabgen import (TabularGenerator, artifacts_from_numpy,
+                                fit_artifacts)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -49,7 +51,9 @@ def test_port_sources_import_neither_jax_nor_repro():
 
 
 def test_import_loads_neither_jax_nor_repro():
-    code = ("import sys, repro_torch.tabgen, repro_torch.kernels.tree_predict.ops;"
+    code = ("import sys, repro_torch.tabgen, repro_torch.tabgen.fitting, "
+            "repro_torch.kernels.tree_predict.ops, "
+            "repro_torch.kernels.hist.ops;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -93,6 +97,22 @@ def test_entry_points_default_to_gpu_and_raise_without_one(tmp_path,
     X, y = gen.generate(12, seed=0)
     assert X.shape == (12, 3) and np.isfinite(X).all()
     assert gen.artifacts.device == torch.device("cpu")
+
+
+def test_training_defaults_to_gpu_and_raises_without_one(monkeypatch):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, 3)).astype(np.float32)
+    cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
+                       n_bins=8)
+    monkeypatch.setattr(dispatch.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fit_artifacts(X, None, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TabularGenerator(cfg).fit(X)
+    gen = TabularGenerator(cfg).fit(X, device="cpu")
+    assert gen.artifacts.device == torch.device("cpu")
+    X2, _ = gen.generate(10, seed=0)
+    assert X2.shape == (10, 3) and np.isfinite(X2).all()
 
 
 def test_gpu_is_the_default_device_where_present(monkeypatch):
