@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the ``tree_predict`` and ``hist`` CUDA kernels from the sources in
-   this checkout, one nvcc each, in parallel, and prints ptxas's lines.
+2. Builds the ``tree_predict``, ``hist`` and ``flash_attention`` CUDA
+   kernels from the sources in this checkout, one nvcc each, in parallel,
+   and prints ptxas's lines.
 3. Holds ``tree_predict`` against its plain PyTorch version on the card, at
    the shapes the generation path gives it (MO at CaloForest photons width,
    SO at one step's shape, odd row counts, +inf sentinels and threshold
@@ -18,24 +19,37 @@
    at level 6), whose float atomics add in another order; two launches on
    the same inputs must give the same bits. Times kernel and plain version
    at both MO levels.
-5. Drives the port's generation path through ``TabularGenerator`` at the
+5. Holds ``flash_attention`` against its plain version on the card (fp32
+   within 2e-5, rtol = atol as tests/test_kernels.py; bf16 within atol
+   1e-3 plus rtol 1e-2, about an ulp),
+   at the serving shape (B=8, Hq=9, Hkv=3, S=2,048, d=64, causal), ragged
+   lengths, non-causal with Skv > Sq and every other head size; two
+   launches must give the same bits. Times kernel, plain version and
+   ``scaled_dot_product_attention`` at the serving shape in fp32 and bf16.
+6. Drives the port's generation path through ``TabularGenerator`` at the
    full width of the CaloForest photons model (method=flow, MO trees,
    n_t=100, n_trees=20, max_depth=7, p=368, n_y=15; random weights from a
    seed, built on the device): euler with two padding buckets, heun, euler
    at n=120,000, ddim and em on the same arrays as a diffusion model, and an
    impute of 512 rows. Checks shapes, finiteness, padding invariance,
    observed cells and the kernel's launch count per call.
-6. Drives the training path through ``TabularGenerator.fit`` at the same
+7. Drives the training path through ``TabularGenerator.fit`` at the same
    width (p=368, duplicate_k=20, n_trees=20, max_depth=7, n_bins=64,
    learning_rate=1.5, reg_lambda=1.0) on calorimeter-like showers made here
    from a seed: MO on a grid cut to n_t=3 x 2 classes of 8,000 rows (6
    ensembles of 160,000 rows) and SO on n_t=2 x 1 class (368 lanes). Checks
    the ``hist`` launch count, that a resume from the checkpoint launches
    nothing, and generates 1,000 rows from the trained MO model.
-7. Checks both paths against the plain PyTorch path on the CPU at a small
+8. Serves smollm-135m at its full width (30 layers, d_model 576, 9/3
+   heads, vocab 49,152; random weights from a seed, built on the device)
+   through ``serve_batch``: 8 prompts of 2,048 tokens, 64 new tokens, fp32.
+   Checks the tokens, 30 kernel launches (one per prefill layer) and none
+   in decode, finite logits; profiles one prefill for the kernel's share
+   of device time; one bf16 prefill.
+9. Checks every path against the plain PyTorch path on the CPU at a small
    size (a solve, a save -> load round trip, a two-moons fit with the same
-   noise) and that a warm-start extension on the card equals a cold fit
-   bit for bit.
+   noise, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
+   that a warm-start extension on the card equals a cold fit bit for bit.
 
 Exits non-zero on any failure and when no CUDA device is present. The line
 before the last is a JSON object with the kernels' numbers; the last line is
@@ -43,6 +57,7 @@ before the last is a JSON object with the kernels' numbers; the last line is
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -57,6 +72,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
 KERNEL_TOL = 1e-6             # kernel and plain version sum in the same order
 # hist vs the plain version on the card, whose index_add_ adds with float
 # atomics in another order: relative to each cell's sum of |g·w|
@@ -69,6 +85,17 @@ SMALL_TOL = 1e-4
 P, N_Y, N_T, N_TREES, DEPTH, N_ROWS = 368, 15, 100, 20, 7, 120_000
 K_DUP, N_BINS, CLASS_ROWS = 20, 64, 8_000
 FIT_ROWS = CLASS_ROWS * K_DUP     # rows of one ensemble
+
+# flash attention vs its plain version, (atol, rtol): the kernel scales q
+# before the product where the plain version divides the scores, and sums
+# in another order. fp32 at tests/test_kernels.py's 2e-5. Both sides sum in
+# fp32 and round once to bf16, so bf16 outputs differ by about an ulp, at
+# most 2^-7 of the value: rtol 1e-2 covers that, atol 1e-3 the outputs
+# near 0
+FA_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-3, 1e-2)}
+# smollm-135m serving: 8 prompts of 2,048 tokens, 64 new tokens
+SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
+FA_SERVE = (SERVE_B, 9, 3, SERVE_S, SERVE_S, 64)   # (B, Hq, Hkv, Sq, Skv, d)
 
 
 def log(msg: str) -> None:
@@ -573,6 +600,239 @@ def check_training_small(device):
             f"bit-identical to the cold fit of 8 rounds")
 
 
+# ---------------------------------------------------------------------------
+# flash attention: kernel vs plain
+# ---------------------------------------------------------------------------
+
+def flash_inputs(b, hq, hkv, sq, skv, d, dtype, seed, device):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((b, hq, sq, d), (b, hkv, skv, d),
+                               (b, hkv, skv, d)))
+
+
+def flash_bytes_ops(b, hq, hkv, sq, skv, d, causal, elem):
+    """Bytes the function must move (q, k, v read once, o written once) and
+    its operations: 4·d per (query, visible key) pair and head, two for the
+    score's multiply-adds and two for P·V's."""
+    pairs = (sum(min(i + 1, skv) for i in range(sq)) if causal
+             else sq * skv)
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * elem
+    return nbytes, 4 * b * hq * d * pairs
+
+
+def check_flash(device, cases):
+    """Kernel vs plain version on the card at every case and dtype; two
+    launches must give the same bits. Returns the largest abs difference
+    per dtype."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    worst = {}
+    for i, (name, shape, causal) in enumerate(cases):
+        for dtype, (atol, rtol) in FA_TOL.items():
+            q, k, v = flash_inputs(*shape, dtype, seed=300 + i, device=device)
+            got = flash_attention(q, k, v, causal=causal)
+            again = flash_attention(q, k, v, causal=causal)
+            ref = attention_ref(q, k, v, causal)
+            sync(device)
+            if not torch.equal(got, again):
+                raise AssertionError(f"flash_attention {name}: two launches "
+                                     f"differ")
+            diff = (got.float() - ref.float()).abs()
+            err = diff.max().item()
+            ok = bool((diff <= atol + rtol * ref.float().abs()).all())
+            log(f"flash_attention vs plain {name} (B,Hq,Hkv,Sq,Skv,d)="
+                f"{shape} causal={causal} {str(dtype)[6:]}: max abs diff "
+                f"{err!r}, within atol {atol} + rtol {rtol}: {ok}; repeat "
+                f"bit-equal")
+            if not ok:
+                raise AssertionError(f"flash_attention disagrees on {name}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            del q, k, v, got, again, ref, diff
+    return worst
+
+
+def time_flash(device, shape, dtype):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = flash_inputs(*shape, dtype, seed=7, device=device)
+    ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                      enable_gqa=True), 10)
+    nbytes, ops = flash_bytes_ops(*shape, True, q.element_size())
+    rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, ops=ops)
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+def prefill_kernel_share(params, cfg, prompts, device):
+    """Profile one fp32 prefill: the device's busy time, the
+    flash-attention kernel's part of it, and the logits."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, _ = lm.prefill_step(params, {"tokens": prompts}, cfg,
+                                    dtype=torch.float32)
+        sync(device)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.device_time_total for e in kernels)
+    fa_us = sum(e.device_time_total for e in kernels if "fa_kernel" in e.name)
+    return logits, busy_us / 1e6, fa_us / 1e6
+
+
+def drive_serving(device):
+    """Serve smollm-135m at full width; returns (kernel launches of the
+    serve_batch run, its stats)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.serve import merge_caches, serve_batch
+    from repro_torch.models import lm
+    cfg = get_arch("smollm-135m")
+    params = lm.init_params(cfg, device=device, seed=0)
+    n_params = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=g,
+                            device=device)
+    cache_size = SERVE_S + SERVE_NEW
+    cache_gb = (2 * cfg.n_layers * SERVE_B * cfg.n_kv_heads * cache_size
+                * cfg.d_head * 4 / 1e9)
+    log(f"smollm-135m: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} parameters ({n_params * 4 / 1e9:.3f} GB fp32) on the "
+        f"device; KV cache of {SERVE_B} x {cache_size} positions, "
+        f"{cache_gb:.3f} GB")
+    # warm-up of cuBLAS and the allocator; its launches are not counted
+    serve_batch(cfg, params, prompts[:1, :64], 2, cache_size=65)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    gen, stats = serve_batch(cfg, params, prompts, SERVE_NEW, cache_size)
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    if (gen.shape != (SERVE_B, SERVE_NEW) or gen.min() < 0
+            or gen.max() >= cfg.vocab):
+        raise AssertionError(f"serve_batch: bad tokens {gen.shape}")
+    # the CPU path launches nothing; the launch checks run on the card
+    on_card = device.type == "cuda"
+    expect = cfg.n_layers if on_card else 0
+    if launches != expect:
+        raise AssertionError(f"serve_batch: {launches} flash_attention "
+                             f"launches, expected {cfg.n_layers}")
+    prefill_tok_s = SERVE_B * SERVE_S / stats["prefill_s"]
+    log(f"serve_batch B={SERVE_B} prompt={SERVE_S} new={SERVE_NEW} fp32: "
+        f"{wall:.3f} s; prefill {stats['prefill_s']!r} s, {prefill_tok_s!r} "
+        f"tok/s; decode {stats['decode_s']!r} s for {SERVE_NEW - 1} steps, "
+        f"{stats['tok_per_s']!r} tok/s; {launches} flash_attention launches")
+
+    flash_attention.launches = 0
+    logits, busy_s, fa_s = prefill_kernel_share(params, cfg, prompts, device)
+    if flash_attention.launches != expect:
+        raise AssertionError("prefill: wrong flash_attention launch count")
+    if logits.shape != (SERVE_B, 1, cfg.vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError("prefill fp32: bad logits")
+    share = fa_s / busy_s if busy_s > 0 else float("nan")
+    log(f"prefill fp32 profiled: device busy {busy_s!r} s, flash_attention "
+        f"{fa_s!r} s ({share!r} of the device time); logits finite")
+    del logits
+
+    flash_attention.launches = 0
+    logits, pc = lm.prefill_step(params, {"tokens": prompts}, cfg)
+    prefill_launches = flash_attention.launches
+    cache = merge_caches(lm.init_cache(cfg, SERVE_B, cache_size,
+                                       torch.bfloat16, device), pc)
+    del pc
+    flash_attention.launches = 0
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    for i in range(2):
+        logits, cache = lm.decode_step(params, cache, tok, SERVE_S + i, cfg)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    sync(device)
+    decode_launches = flash_attention.launches
+    if (prefill_launches != expect or decode_launches != 0
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"bf16: {prefill_launches} prefill and "
+                             f"{decode_launches} decode launches, or "
+                             f"non-finite logits")
+    log(f"prefill bf16: {prefill_launches} flash_attention launches, "
+        f"logits finite; 2 bf16 decode steps: {decode_launches} launches")
+    del params, cache, logits
+    stats.update(prefill_tok_per_s=prefill_tok_s, device_busy_s=busy_s,
+                 flash_attention_s=fa_s, flash_attention_share=share)
+    return launches, stats
+
+
+def check_serving_small(device):
+    """smollm-135m width with 2 layers and a 512-token vocabulary, the same
+    weights on both sides: prefill logits and caches on the card within
+    SMALL_TOL of the plain path on the CPU, and 8 greedy tokens equal."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_arch("smollm-135m"), n_layers=2, vocab=512)
+    cpu = torch.device("cpu")
+    on_cpu = lm.init_params(cfg, device=cpu, seed=3)
+    on_card = copy.deepcopy(on_cpu).to(device)
+    prompts = torch.from_numpy(
+        np.random.default_rng(3).integers(0, cfg.vocab, (2, 300)))
+    (lg, cg), (lc, cc) = [
+        lm.prefill_step(p, {"tokens": prompts.to(d)}, cfg, dtype=torch.float32)
+        for p, d in ((on_card, device), (on_cpu, cpu))]
+    pairs = [(lg, lc)] + [(cg[0]["0_dense"][n], cc[0]["0_dense"][n])
+                          for n in ("k", "v")]
+    err = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+    ok = all(torch.allclose(a.cpu(), b, rtol=SMALL_TOL, atol=SMALL_TOL)
+             for a, b in pairs)
+    log(f"prefill 2-layer smollm width B=2 S=300 on {device.type} vs plain "
+        f"on cpu: logits and caches max abs diff {err!r}, within "
+        f"{SMALL_TOL} (rtol = atol): {ok}")
+    if not ok:
+        raise AssertionError("serving: device and plain path disagree")
+    toks = [serve_batch(cfg, p, prompts, 8, cache_size=308)[0]
+            for p in (on_card, on_cpu)]
+    if not np.array_equal(*toks):
+        raise AssertionError(f"greedy tokens differ: {toks}")
+    log("8 greedy tokens on the card equal the plain path's on the cpu")
+
+
+def flash_phase(device):
+    """flash_attention against its plain version at every case, then timed
+    at the serving shape in fp32 and bf16. Returns (worst abs difference
+    per dtype, timings per dtype)."""
+    cases = [("serving", FA_SERVE, True),
+             ("ragged", (1, 9, 3, 1000, 1000, 64), True),
+             ("one token", (2, 9, 3, 1, 1, 64), True),
+             ("non-causal Skv > Sq", (1, 8, 1, 128, 256, 64), False)]
+    cases += [(f"d={d}", (1, 4, 2, 200, 200, d), True)
+              for d in (16, 32, 128, 160, 256)]
+    cases.append(("d=256 non-causal", (1, 4, 1, 70, 130, 256), False))
+    worst = check_flash(device, cases)
+    timing = {}
+    for dtype in FA_TOL:
+        ft = time_flash(device, FA_SERVE, dtype)
+        timing[dtype] = ft
+        log(f"flash_attention at the serving shape {FA_SERVE} "
+            f"{str(dtype)[6:]}: kernel {ft['ms']!r} ms, plain "
+            f"{ft['plain_ms']!r} ms, scaled_dot_product_attention "
+            f"{ft['library_ms']!r} ms, bound {ft['bound_ms']!r} ms "
+            f"({ft['bound_by']}: {ft['ops']} operations, {ft['bytes']} "
+            f"bytes)")
+    return worst, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -581,6 +841,7 @@ def main() -> int:
                                     "src"))
     from repro_torch.config import ForestConfig
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.hist.ops import histogram
     from repro_torch.kernels.tree_predict.ops import forest_predict
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -590,13 +851,15 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    built = build.build(["tree_predict", "hist"])
+    built = build.build(["tree_predict", "hist", "flash_attention"])
     for name in built:
         build.load(name)
-    log(f"kernel build (both in parallel): {time.perf_counter() - t0:.2f} s")
+    log(f"kernel build (all three in parallel): "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, (_, build_log) in built.items():
         for line in build_log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line for w in ("Function properties", "registers",
+                                       "smem", "spill")):
                 log(f"  {name}: {line.strip()}")
 
     # -- kernels against their plain versions -------------------------------
@@ -637,6 +900,8 @@ def main() -> int:
         "histograms of all features without an [n*p, out] copy of g "
         "(87 GB at full width)")
 
+    fa_worst, fa_timing = flash_phase(device)
+
     # -- the generation path -----------------------------------------------
     cfg = ForestConfig(method="flow", n_t=N_T, duplicate_k=K_DUP,
                        n_trees=N_TREES, max_depth=DEPTH, learning_rate=1.5,
@@ -644,19 +909,25 @@ def main() -> int:
     flow = random_artifacts(cfg, N_Y, P, m, seed=0, device=device)
     log(f"artifacts: leaf {tuple(flow.leaf.shape)}, "
         f"{flow.leaf.numel() * 4 / 1e9:.2f} GB on the device")
-    forest_predict.launches = histogram.launches = 0
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
     counts = drive_main_path(flow, N_ROWS, 1000, 1024)
     del flow
     torch.cuda.empty_cache()
 
     # -- the training path -------------------------------------------------
-    forest_predict.launches = histogram.launches = 0
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
     with tempfile.TemporaryDirectory() as ckpt_root:
         hist_launches = drive_training(device, ckpt_root)
     torch.cuda.empty_cache()
 
+    # -- the LM serving path -----------------------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    fa_launches, serving = drive_serving(device)
+    torch.cuda.empty_cache()
+
     check_small(device)
     check_training_small(device)
+    check_serving_small(device)
 
     ht = hist_timing[6]
     kernels = [{
@@ -673,9 +944,22 @@ def main() -> int:
         "launches": hist_launches, "max_abs_err": hist_worst,
         "ms": ht["ms"], "plain_ms": ht["plain_ms"],
         "bound_ms": ht["bound_ms"], "bound_by": ht["bound_by"],
-        "library_ms": None}]
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source":
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/fa_kernel.py:69",
+        "launches": fa_launches,
+        "max_abs_err": fa_worst[torch.float32],
+        **{key: fa_timing[torch.float32][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms")}}]
     print(json.dumps({"kernels": kernels, "launches_per_call": counts,
-                      "hist_level0": hist_timing[0]}))
+                      "hist_level0": hist_timing[0],
+                      "flash_attention_bf16": dict(
+                          fa_timing[torch.bfloat16],
+                          max_abs_err=fa_worst[torch.bfloat16]),
+                      "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

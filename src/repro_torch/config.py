@@ -1,7 +1,12 @@
-"""ForestFlow / ForestDiffusion hyperparameters for the PyTorch port.
+"""Configuration dataclasses of the PyTorch port.
 
-A field-for-field copy of ``repro.config.ForestConfig`` (the JAX package's
-config), so ``ForestConfig(**meta["config"])`` accepts every JSON sidecar the
+* :class:`ArchConfig` — an LM-family transformer architecture, a
+  field-for-field copy of ``repro.config.ArchConfig`` (the port serves the
+  ``dense`` family so far).
+* :class:`ForestConfig` — ForestFlow / ForestDiffusion hyperparameters.
+
+``ForestConfig`` is a field-for-field copy of ``repro.config.ForestConfig``
+(the JAX package's config), so ``ForestConfig(**meta["config"])`` accepts every JSON sidecar the
 JAX trainer writes and the port writes sidecars the JAX package reads.
 
 Fields that only steer the JAX trainer or its TPU kernels are kept for that
@@ -20,7 +25,63 @@ JAX package's single-device trainer.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """An LM-family architecture description.
+
+    ``family`` selects the block assembly:
+      - ``dense``: pre-LN GQA transformer (llama-style, SwiGLU)
+      - ``moe``: dense attention + top-k routed experts (dbrx-style)
+      - ``mla_moe``: MLA attention + shared/routed experts (deepseek-v2-style)
+      - ``vlm``: dense backbone consuming stub patch embeddings + tokens
+      - ``audio_encdec``: whisper-style encoder/decoder over stub frames
+      - ``ssm``: xLSTM (mLSTM/sLSTM blocks)
+      - ``hybrid``: recurrentgemma (RG-LRU blocks + interleaved local attention)
+    """
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    first_k_dense: int = 0       # deepseek: first layer(s) use a dense FFN
+    d_ff_dense: int = 0          # width of that dense FFN
+    # --- MLA (deepseek-v2) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    rope_head_dim: int = 0
+    nope_head_dim: int = 0
+    v_head_dim: int = 0
+    # --- recurrent / hybrid ---
+    rnn_width: int = 0           # RG-LRU / xLSTM inner width
+    attn_window: int = 0         # local attention window (hybrid)
+    pattern: Tuple[str, ...] = ()  # repeating block pattern, e.g. ("rec","rec","attn")
+    conv1d_width: int = 4        # temporal conv width in recurrent blocks
+    # --- modality stubs ---
+    n_patches: int = 0           # vlm: stub image patches prepended to the sequence
+    # --- misc ---
+    tie_embeddings: bool = False
+    norm: str = "rmsnorm"        # or "layernorm"
+    act: str = "swiglu"          # or "geglu", "gelu"
+    rope_theta: float = 10000.0
+    sub_quadratic: bool = False  # eligible for long_500k
+    notes: str = ""
+
+    @property
+    def q_per_kv(self) -> int:
+        return max(1, self.n_heads // max(1, self.n_kv_heads))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,103 @@
+"""Top-level LM assembly: init, prefill, decode.
+
+A port of ``repro.models.lm`` for the ``dense`` family: the serving steps
+``prefill_step`` (full-sequence forward emitting last-position logits and
+the KV cache) and ``decode_step`` (one new token against the cache). The
+training objective (``loss_fn``, ``chunked_xent``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.config import ArchConfig
+from repro_torch.kernels.dispatch import Device, resolve_device
+from repro_torch.models import blocks
+from repro_torch.models.layers import (_normal, apply_norm, embed_tokens,
+                                       init_embed, init_norm)
+
+
+class LM(nn.Module):
+    """The parameters of one model, named as the JAX package's tree:
+    ``embed.tokens``, ``segments[s][g]["{i}_{kind}"]``, ``final_norm`` and,
+    without tied embeddings, ``lm_head.w``."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = init_embed(gen, cfg.vocab, cfg.d_model, device, dtype)
+        self.segments = nn.ModuleList(
+            blocks.init_segment(gen, cfg, kinds, n, device, dtype)
+            for kinds, n in blocks.segments_for(cfg))
+        self.final_norm = init_norm(cfg.d_model, cfg.norm, device, dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Module()
+            self.lm_head.w = _normal(gen, (cfg.d_model, cfg.vocab),
+                                     cfg.d_model ** -0.5, device, dtype)
+
+
+def init_params(cfg: ArchConfig, *, device: Optional[Device] = None,
+                dtype=torch.float32, seed: int = 0) -> LM:
+    """Random weights from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (``None`` -> the GPU, raising without one)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return LM(cfg, gen, device, dtype)
+
+
+def _head_weight(params: LM, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params.embed.tokens.T
+    return params.lm_head.w
+
+
+def _device(params: LM) -> torch.device:
+    return params.embed.tokens.device
+
+
+@torch.inference_mode()
+def prefill_step(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+                 *, dtype=torch.bfloat16):
+    """Full forward over ``batch["tokens"]`` ``[B, S]``; returns the last
+    position's logits ``[B, 1, V]`` in fp32 and the caches (one stacked
+    dict per segment) for decode."""
+    tokens = batch["tokens"].to(_device(params))
+    x = embed_tokens(params.embed, tokens, dtype)
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    caches: List[Dict] = []
+    for (kinds, _), seg in zip(blocks.segments_for(cfg), params.segments):
+        x, c = blocks.apply_segment_prefill(seg, x, pos, cfg, kinds)
+        caches.append(c)
+    x = apply_norm(params.final_norm, x, cfg.norm)
+    w = _head_weight(params, cfg)
+    logits = (x[:, -1:] @ w.to(x.dtype)).float()
+    return logits, caches
+
+
+@torch.inference_mode()
+def decode_step(params: LM, cache: List[Dict], tokens: torch.Tensor, pos: int,
+                cfg: ArchConfig, *, dtype=torch.bfloat16):
+    """One token. tokens: ``[B, 1]``; pos: the token's position; cache from
+    :func:`init_cache` / :func:`prefill_step`, written in place. Returns
+    ``(logits [B, 1, V] fp32, cache)``."""
+    x = embed_tokens(params.embed, tokens.to(_device(params)), dtype)
+    for (kinds, _), seg, c in zip(blocks.segments_for(cfg), params.segments,
+                                  cache):
+        x, _ = blocks.apply_segment_decode(seg, c, x, pos, cfg, kinds)
+    x = apply_norm(params.final_norm, x, cfg.norm)
+    w = _head_weight(params, cfg)
+    logits = (x @ w.to(x.dtype)).float()
+    return logits, cache
+
+
+def init_cache(cfg: ArchConfig, batch: int, size: int, dtype=torch.bfloat16,
+               device: Optional[Device] = None) -> List[Dict]:
+    device = resolve_device(device)
+    return [blocks.init_segment_cache(cfg, kinds, n, batch, size, dtype,
+                                      device)
+            for kinds, n in blocks.segments_for(cfg)]

@@ -1,0 +1,146 @@
+"""The port's flash attention against the JAX package, on the CPU.
+
+On a CPU tensor ``flash_attention`` runs its plain version; it is held to
+the Pallas kernel run in interpret mode at the cases of
+tests/test_kernels.py's sweep (2e-5 in fp32, 2e-2 in bf16, its
+tolerances), to the JAX ``attention_ref`` at ragged lengths the Pallas
+kernel does not take, and to the JAX ``mea_attention``'s blocked scan
+(2e-4, the tolerance tests/test_kernels.py holds it to the kernel). The
+CUDA kernel is held to the plain version on the card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.fa_kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.models.attention import mea_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+# kernel vs plain version on the card, (atol, rtol): both sum in fp32 and
+# round once to the output dtype, so bf16 outputs differ by about an ulp
+CARD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-3, 1e-2)}
+
+
+def qkv(b, hq, hkv, sq, skv, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, hq, sq, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, skv, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, skv, d)).astype(np.float32))
+
+
+def port(arrays, dtype, causal):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrays)
+    out = flash_attention(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    return out.float().numpy()
+
+
+def close(got, want, tol):
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,dtype", [
+    (1, 2, 2, 128, 128, 32, True, "float32"),
+    (2, 4, 2, 256, 256, 64, True, "float32"),
+    (1, 8, 1, 128, 256, 64, False, "float32"),
+    (2, 4, 4, 128, 128, 64, True, "bfloat16"),
+    (1, 6, 3, 192, 192, 32, True, "float32"),
+])
+def test_matches_pallas_interpret(b, hq, hkv, sq, skv, d, causal, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = qkv(b, hq, hkv, sq, skv, d, seed=3)
+    want = flash_attention_pallas(*(jnp.asarray(a, jdt) for a in arrays),
+                                  causal=causal, bq=64, bk=64, interpret=True)
+    close(port(arrays, tdt, causal), want, tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", [
+    (1, 9, 3, 100, 100, 64),       # ragged: the Pallas kernel asserts Sq % bq
+    (2, 9, 3, 1, 1, 64),
+    (1, 4, 2, 37, 100, 160),       # Skv > Sq
+    (1, 4, 1, 70, 33, 16),         # Skv < Sq: late rows see every key
+])
+def test_matches_jax_ref_at_ragged_lengths(b, hq, hkv, sq, skv, d, causal,
+                                           dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = qkv(b, hq, hkv, sq, skv, d, seed=sq)
+    want = jax_attention_ref(*(jnp.asarray(a, jdt) for a in arrays), causal)
+    close(port(arrays, tdt, causal), want, tol)
+
+
+def test_matches_mea_attention_blocked_scan():
+    """S = 640 > mea_attention's 512-row q block, so its blocked scan runs,
+    with a padded last block."""
+    arrays = qkv(1, 9, 3, 640, 640, 64, seed=4)
+    want = mea_attention(*(jnp.asarray(a) for a in arrays), causal=True)
+    close(port(arrays, torch.float32, True), want, 2e-4)
+
+
+def test_plain_version_is_the_cpu_path():
+    q, k, v = (torch.from_numpy(a) for a in qkv(1, 4, 2, 50, 50, 32, seed=5))
+    before = flash_attention.launches
+    assert torch.equal(flash_attention(q, k, v), attention_ref(q, k, v))
+    assert flash_attention.launches == before     # no kernel on the CPU
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = (torch.from_numpy(a) for a in qkv(1, 4, 2, 8, 8, 32, seed=6))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(torch.zeros(1, 3, 8, 32), k, v)
+    with pytest.raises(ValueError, match="d=48"):
+        z = torch.zeros(1, 2, 8, 48)
+        flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError, match="Skv"):
+        e = torch.zeros(1, 2, 0, 32)
+        flash_attention(q, e, e)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel (needs a GPU)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the flash_attention kernel has no "
+                    "CPU mode; python3 chip_smoke.py runs it on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+    (2, 9, 3, 300, 300, 64, True),
+    (1, 9, 3, 1, 1, 64, True),
+    (1, 8, 1, 128, 256, 64, False),
+    (1, 4, 2, 100, 70, 256, True),
+    (1, 4, 4, 65, 65, 160, True),
+])
+def test_cuda_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d, causal,
+                                   dtype):
+    _, tdt, _ = DTYPES[dtype]
+    atol, rtol = CARD_TOL[dtype]
+    q, k, v = (torch.from_numpy(a).to(cuda_device, tdt)
+               for a in qkv(b, hq, hkv, sq, skv, d, seed=sq))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 2
+    ref = attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=rtol, atol=atol)

@@ -4,9 +4,9 @@ asked for the CPU.
 * No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of the JAX package ``repro``.
 * Importing the port's entry points loads neither.
-* Entry points (loading, sampling and training) given ``device=None`` take
-  the GPU and raise where there is none; ``device="cpu"`` runs the plain
-  PyTorch path.
+* Entry points (loading, sampling, training and LM serving) given
+  ``device=None`` take the GPU and raise where there is none;
+  ``device="cpu"`` runs the plain PyTorch path.
 """
 import ast
 import dataclasses
@@ -22,7 +22,12 @@ import torch
 
 import repro_torch.kernels.dispatch as dispatch
 from repro_torch.config import ForestConfig
+from repro_torch.configs import get_arch
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models import lm
+from repro_torch.models.convert import params_from_jax
 from repro_torch.tabgen import (TabularGenerator, artifacts_from_numpy,
                                 fit_artifacts)
 
@@ -53,7 +58,9 @@ def test_port_sources_import_neither_jax_nor_repro():
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.tabgen, repro_torch.tabgen.fitting, "
             "repro_torch.kernels.tree_predict.ops, "
-            "repro_torch.kernels.hist.ops;"
+            "repro_torch.kernels.hist.ops, repro_torch.models.lm, "
+            "repro_torch.models.convert, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention.ops;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -113,6 +120,29 @@ def test_training_defaults_to_gpu_and_raises_without_one(monkeypatch):
     assert gen.artifacts.device == torch.device("cpu")
     X2, _ = gen.generate(10, seed=0)
     assert X2.shape == (10, 3) and np.isfinite(X2).all()
+
+
+def test_lm_serving_defaults_to_gpu_and_raises_without_one(monkeypatch):
+    cfg = get_arch("smollm-135m", reduced=True)
+    params = lm.init_params(cfg, device="cpu")
+    tree = {"embed": {"tokens": params.embed.tokens.detach().numpy()}}
+    monkeypatch.setattr(dispatch.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(tree, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(["--reduced", "--requests", "1", "--prompt-len", "3",
+                    "--max-new", "2"])
+    gen = serve_main(["--reduced", "--device", "cpu", "--requests", "2",
+                      "--prompt-len", "5", "--max-new", "3"])
+    assert gen.shape == (2, 3) and ((gen >= 0) & (gen < cfg.vocab)).all()
+    prompts = torch.zeros((1, 4), dtype=torch.int64)
+    tokens, _ = serve_batch(cfg, params, prompts, 2, cache_size=5)
+    assert tokens.shape == (1, 2)
+    assert params.embed.tokens.device == torch.device("cpu")
 
 
 def test_gpu_is_the_default_device_where_present(monkeypatch):
