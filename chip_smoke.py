@@ -23,9 +23,13 @@
    within 2e-5, rtol = atol as tests/test_kernels.py; bf16 within atol
    1e-3 plus rtol 1e-2, about an ulp),
    at the serving shape (B=8, Hq=9, Hkv=3, S=2,048, d=64, causal), ragged
-   lengths, non-causal with Skv > Sq and every other head size; two
-   launches must give the same bits. Times kernel, plain version and
-   ``scaled_dot_product_attention`` at the serving shape in fp32 and bf16.
+   lengths (Sq and Skv not multiples of the bf16 kernel's 128-row tiles),
+   one KV head per query head, non-causal with Skv > Sq and every other
+   head size; two launches must give the same bits. Checks that the bf16
+   instances run on the tensor cores and load by TMA (``HGMMA`` and
+   ``UTMALDG`` in each one's SASS) and logs their registers. Times kernel,
+   plain version and ``scaled_dot_product_attention`` at the serving shape
+   in fp32 and bf16.
 6. Drives the port's generation path through ``TabularGenerator`` at the
    full width of the CaloForest photons model (method=flow, MO trees,
    n_t=100, n_trees=20, max_depth=7, p=368, n_y=15; random weights from a
@@ -45,7 +49,9 @@
    through ``serve_batch``: 8 prompts of 2,048 tokens, 64 new tokens, fp32.
    Checks the tokens, 30 kernel launches (one per prefill layer) and none
    in decode, finite logits; profiles one prefill for the kernel's share
-   of device time; one bf16 prefill.
+   of device time. Then bf16, the prefill entry point's default: 30
+   launches per prefill and none in two decode steps; one prefill timed
+   (seconds, tokens/s) and one profiled for the kernel's share.
 9. Checks every path against the plain PyTorch path on the CPU at a small
    size (a solve, a save -> load round trip, a two-moons fit with the same
    noise, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
@@ -62,6 +68,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -653,6 +660,41 @@ def check_flash(device, cases):
     return worst
 
 
+def ptxas_lines(build_log):
+    """ptxas -v's stack, spill and register lines, keyed by the function
+    they describe."""
+    props, name = {}, None
+    for line in build_log.splitlines():
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            name = found.group(1)
+        elif name and ("registers" in line or "spill" in line):
+            props.setdefault(name, []).append(line.strip())
+    return props
+
+
+def check_tensor_cores(lib_path):
+    """Every bf16 instance of flash_attention (``fa_wgmma_kernel<d>``) must
+    hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in its SASS. Returns
+    {d: (HGMMA count, UTMALDG count)}."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        found = re.match(r"\S*fa_wgmma_kernelILi(\d+)E", part)
+        if found:
+            counts[int(found.group(1))] = (part.count("HGMMA"),
+                                           part.count("UTMALDG"))
+    if (sorted(counts) != sorted(HEAD_DIMS)
+            or not all(h and t for h, t in counts.values())):
+        raise AssertionError(f"bf16 flash_attention does not run wgmma fed "
+                             f"by TMA at every d: {counts}")
+    return counts
+
+
 def time_flash(device, shape, dtype):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -676,21 +718,23 @@ def time_flash(device, shape, dtype):
 # the LM serving path
 # ---------------------------------------------------------------------------
 
-def prefill_kernel_share(params, cfg, prompts, device):
-    """Profile one fp32 prefill: the device's busy time, the
-    flash-attention kernel's part of it, and the logits."""
+def prefill_kernel_share(params, cfg, prompts, device, dtype):
+    """Profile one prefill in ``dtype``: the device's busy time, the
+    flash-attention kernel's part of it (the fp32 ``fa_kernel`` or the bf16
+    ``fa_wgmma_kernel``), and the logits."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm
     sync(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         logits, _ = lm.prefill_step(params, {"tokens": prompts}, cfg,
-                                    dtype=torch.float32)
+                                    dtype=dtype)
         sync(device)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.device_time_total for e in kernels)
-    fa_us = sum(e.device_time_total for e in kernels if "fa_kernel" in e.name)
+    fa_us = sum(e.device_time_total for e in kernels
+                if "fa_kernel" in e.name or "fa_wgmma_kernel" in e.name)
     return logits, busy_us / 1e6, fa_us / 1e6
 
 
@@ -738,7 +782,8 @@ def drive_serving(device):
         f"{stats['tok_per_s']!r} tok/s; {launches} flash_attention launches")
 
     flash_attention.launches = 0
-    logits, busy_s, fa_s = prefill_kernel_share(params, cfg, prompts, device)
+    logits, busy_s, fa_s = prefill_kernel_share(params, cfg, prompts, device,
+                                                torch.float32)
     if flash_attention.launches != expect:
         raise AssertionError("prefill: wrong flash_attention launch count")
     if logits.shape != (SERVE_B, 1, cfg.vocab) or not torch.isfinite(
@@ -769,9 +814,34 @@ def drive_serving(device):
                              f"non-finite logits")
     log(f"prefill bf16: {prefill_launches} flash_attention launches, "
         f"logits finite; 2 bf16 decode steps: {decode_launches} launches")
-    del params, cache, logits
+    del cache, logits
+
+    # the bf16 prefill timed as serve_batch times the fp32 one (host clock
+    # around the call, synchronised), after the warm call above
+    sync(device)
+    t0 = time.perf_counter()
+    lm.prefill_step(params, {"tokens": prompts}, cfg)
+    sync(device)
+    bf16_s = time.perf_counter() - t0
+    flash_attention.launches = 0
+    logits, bf16_busy_s, bf16_fa_s = prefill_kernel_share(
+        params, cfg, prompts, device, torch.bfloat16)
+    if flash_attention.launches != expect or not torch.isfinite(logits).all():
+        raise AssertionError("prefill bf16: wrong flash_attention launch "
+                             "count or non-finite logits")
+    bf16_share = bf16_fa_s / bf16_busy_s if bf16_busy_s > 0 else float("nan")
+    bf16_tok_s = SERVE_B * SERVE_S / bf16_s
+    log(f"prefill bf16 B={SERVE_B} prompt={SERVE_S}: {bf16_s!r} s, "
+        f"{bf16_tok_s!r} tok/s; profiled: device busy {bf16_busy_s!r} s, "
+        f"flash_attention {bf16_fa_s!r} s ({bf16_share!r} of the device "
+        f"time)")
+    del params, logits
     stats.update(prefill_tok_per_s=prefill_tok_s, device_busy_s=busy_s,
-                 flash_attention_s=fa_s, flash_attention_share=share)
+                 flash_attention_s=fa_s, flash_attention_share=share,
+                 bf16_prefill_s=bf16_s, bf16_prefill_tok_per_s=bf16_tok_s,
+                 bf16_device_busy_s=bf16_busy_s,
+                 bf16_flash_attention_s=bf16_fa_s,
+                 bf16_flash_attention_share=bf16_share)
     return launches, stats
 
 
@@ -814,6 +884,10 @@ def flash_phase(device):
     per dtype, timings per dtype)."""
     cases = [("serving", FA_SERVE, True),
              ("ragged", (1, 9, 3, 1000, 1000, 64), True),
+             ("Sq = Skv = 300", (2, 9, 3, 300, 300, 64), True),
+             ("G = 1", (1, 4, 4, 257, 257, 64), True),
+             ("non-causal Sq = 190, Skv = 333",
+              (1, 4, 2, 190, 333, 128), False),
              ("one token", (2, 9, 3, 1, 1, 64), True),
              ("non-causal Skv > Sq", (1, 8, 1, 128, 256, 64), False)]
     cases += [(f"d={d}", (1, 4, 2, 200, 200, d), True)
@@ -827,7 +901,8 @@ def flash_phase(device):
         log(f"flash_attention at the serving shape {FA_SERVE} "
             f"{str(dtype)[6:]}: kernel {ft['ms']!r} ms, plain "
             f"{ft['plain_ms']!r} ms, scaled_dot_product_attention "
-            f"{ft['library_ms']!r} ms, bound {ft['bound_ms']!r} ms "
+            f"{ft['library_ms']!r} ms (kernel / that "
+            f"{ft['ms'] / ft['library_ms']!r}), bound {ft['bound_ms']!r} ms "
             f"({ft['bound_by']}: {ft['ops']} operations, {ft['bytes']} "
             f"bytes)")
     return worst, timing
@@ -857,10 +932,11 @@ def main() -> int:
     log(f"kernel build (all three in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
     for name, (_, build_log) in built.items():
-        for line in build_log.splitlines():
-            if any(w in line for w in ("Function properties", "registers",
-                                       "smem", "spill")):
-                log(f"  {name}: {line.strip()}")
+        for fn, lines in ptxas_lines(build_log).items():
+            log(f"  {name} {fn}: {'; '.join(lines)}")
+    sass = check_tensor_cores(built["flash_attention"][0])
+    log(f"flash_attention bf16 instances on the tensor cores, loading by "
+        f"TMA: (HGMMA, UTMALDG) instructions per d {sass}")
 
     # -- kernels against their plain versions -------------------------------
     m = N_ROWS // N_Y
@@ -958,7 +1034,13 @@ def main() -> int:
                       "hist_level0": hist_timing[0],
                       "flash_attention_bf16": dict(
                           fa_timing[torch.bfloat16],
-                          max_abs_err=fa_worst[torch.bfloat16]),
+                          max_abs_err=fa_worst[torch.bfloat16],
+                          sdpa_ratio=(fa_timing[torch.bfloat16]["ms"]
+                                      / fa_timing[torch.bfloat16][
+                                          "library_ms"]),
+                          source="src/repro_torch/kernels/flash_attention/"
+                                 "csrc/flash_attention_bf16.cuh",
+                          sass=sass),
                       "serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel ``<name>`` has one source, ``<name>/csrc/<name>.cu``, with a
-plain C interface. ``nvcc`` compiles it for ``sm_90a`` into a shared library
-that ``ctypes`` loads. The build runs at first use, from the sources in this
-package, into ``<name>/_build/`` (listed in ``.gitignore``); the library's
-name carries a hash of the source and the flags, so an edited kernel is
-rebuilt and concurrent builds never see a partial file. Nothing here runs
+Each kernel ``<name>`` has one translation unit, ``<name>/csrc/<name>.cu``,
+with a plain C interface; it may include headers beside it in ``csrc/``.
+``nvcc`` compiles it for ``sm_90a`` into a shared library that ``ctypes``
+loads. The build runs at first use, from the sources in this package, into
+``<name>/_build/`` (listed in ``.gitignore``); the library's name carries a
+hash of every file under ``csrc/`` and the flags, so an edited kernel or
+header is rebuilt and concurrent builds never see a partial file. Nothing here runs
 at import: a host without ``nvcc`` imports the package and uses the plain
 PyTorch path.
 
@@ -20,7 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -48,9 +49,20 @@ def find_nvcc() -> str:
                        "build the port's CUDA kernels")
 
 
+def sources(name: str) -> List[str]:
+    """Every file under the kernel's ``csrc/``, sorted: what a build reads."""
+    root = os.path.dirname(source(name))
+    return sorted(os.path.join(d, f) for d, _, files in os.walk(root)
+                  for f in files)
+
+
 def library_path(name: str) -> str:
-    with open(source(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    root = os.path.dirname(source(name))
+    for path in sources(name):
+        digest.update(os.path.relpath(path, root).encode() + b"\0")
+        with open(path, "rb") as f:
+            digest.update(f.read() + b"\0")
     return os.path.join(build_dir(name),
                         f"lib{name}_{digest.hexdigest()[:16]}.so")
 

@@ -4,49 +4,54 @@
 // Replaces src/repro/kernels/flash_attention/fa_kernel.py::
 // flash_attention_pallas (body _fa_kernel). The TPU kernel walks the KV
 // blocks on a sequential grid axis and carries m, l and acc in VMEM
-// scratch; here one block owns a tile of kBQ query rows of one (batch,
-// query head) and walks the KV tiles in a loop inside itself, with m, l and
-// acc in registers.
+// scratch; here one block owns a tile of query rows of one (batch, query
+// head) and walks the KV tiles in a loop inside itself, with m, l and acc
+// in registers.
 //
 //   q [B, Hq, Sq, d]    f32 | bf16
 //   k [B, Hkv, Skv, d]  same type; query head h reads KV head h / (Hq/Hkv)
 //   v [B, Hkv, Skv, d]
 //   o [B, Hq, Sq, d]    q's type
 //
-// Semantics, as the TPU kernel: q is scaled by 1/√d before the product;
-// scores of keys j > i (causal, aligned top-left) are filled with -1e30; m
-// starts at -1e30, and each KV tile rescales acc and l by exp(m_prev -
-// m_new) before its P·V is added; the output is acc / max(l, 1e-30) in q's
-// type. Tiles wholly above the diagonal are skipped. Unlike the TPU kernel
-// any Sq and Skv are taken: query rows past Sq are not written, keys past
-// Skv get the -1e30 fill (and V rows of 0), so they contribute nothing.
-// Every d_head of the repo's configurations (16, 32, 64, 128, 160, 256) is
-// a template instance. Sums run in a fixed order with no atomics, so two
-// launches give the same bits.
+// Semantics, as the TPU kernel: scores are q·kᵀ/√d; scores of keys j > i
+// (causal, aligned top-left) are filled with -1e30; m starts at -1e30, and
+// each KV tile rescales acc and l by exp(m_prev - m_new) before its P·V is
+// added; the output is acc / max(l, 1e-30) in q's type. Tiles wholly above
+// the diagonal are skipped. Unlike the TPU kernel any Sq and Skv are taken:
+// query rows past Sq are not written, keys past Skv get the -1e30 fill (and
+// V rows of 0), so they contribute nothing. Every d_head of the repo's
+// configurations (16, 32, 64, 128, 160, 256) is a template instance. Sums
+// run in a fixed order with no atomics, so two launches give the same bits.
 //
-// Design. A block has 256 threads as a 16 × 16 grid (ty, tx). Each tile of
-// Q (pre-scaled), K and V is staged in shared memory as fp32; thread (ty,
-// tx) computes the scores of rows ty + 16i and keys tx + 16j (i, j < 4)
-// with scalar FMAs, reduces the row maxima over its 16 lanes with
-// shuffles, writes its exp()s to a shared P tile, and then accumulates the
-// output columns tx + 16j (j < d/16) of its four rows. Q and K rows are
+// Two designs, one per type:
+//  - bf16 runs on the tensor cores (wgmma fed by TMA through an mbarrier
+//    ring): flash_attention_bf16.cuh, whose note gives its bound and design.
+//  - fp32 runs the SIMT kernel below (fa_kernel<float, D>).
+//
+// fp32 design. A block has 256 threads as a 16 × 16 grid (ty, tx). Each
+// tile of Q (pre-scaled by 1/√d), K and V is staged in shared memory as
+// fp32; thread (ty, tx) computes the scores of rows ty + 16i and keys tx +
+// 16j (i, j < 4) with scalar FMAs, reduces the row maxima over its 16 lanes
+// with shuffles, writes its exp()s to a shared P tile, and then accumulates
+// the output columns tx + 16j (j < d/16) of its four rows. Q and K rows are
 // padded to d + 1 floats, so the 16 keys a half-warp reads sit in 16
 // banks. l stays a per-thread partial sum (alpha is the same for every
 // thread of a row) and is reduced once at the end. The heaviest causal
 // tiles (the last rows) are launched first.
 //
-// Bound. At the serving shape of smollm-135m (B = 8, Hq = 9, Hkv = 3, S =
-// 2,048, d = 64, causal, fp32) the function needs 4·B·Hq·d·pairs = 38.7 G
+// fp32 bound. At the serving shape of smollm-135m (B = 8, Hq = 9, Hkv = 3,
+// S = 2,048, d = 64, causal) the function needs 4·B·Hq·d·pairs = 38.7 G
 // operations (pairs = Σ min(i + 1, Skv)): 0.58 ms at 67 TFLOP/s, against
 // 101 MB of inputs and output, 0.03 ms at 3.35 TB/s. So operations bound
 // it. This kernel runs them as fp32 FMAs on the CUDA cores, with the causal
 // half skipped at tile granularity; each score FMA needs half a
 // shared-memory load (8 loads per 16 FMAs), so shared-memory bandwidth,
-// not the FMA pipe, is its own limit. Tensor cores (wgmma on bf16 tiles
-// fed by TMA) are the step past that, for a later change.
+// not the FMA pipe, is its own limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_attention_bf16.cuh"
 
 namespace {
 
@@ -57,18 +62,11 @@ constexpr float kNegInf = -1e30f;
 constexpr size_t kMaxSmem = 227 * 1024;   // what one block may use
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 size_t smem_bytes(int d) {
   return sizeof(float) * ((size_t)kBQ * (d + 1)      // Q
@@ -269,8 +267,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 4:
       return launch_d<float>(q, k, v, o, b, hq, hkv, sq, skv, d, causal, st);
     case 2:
-      return launch_d<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, d,
-                                     causal, st);
+      return fa_bf16::launch_d(q, k, v, o, b, hq, hkv, sq, skv, d, causal,
+                               st);
     default:
       return (int)cudaErrorInvalidValue;
   }

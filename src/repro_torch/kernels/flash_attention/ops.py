@@ -4,7 +4,8 @@ The tensors' device picks the path. On the CPU it runs the plain PyTorch
 version (:mod:`.ref`); on a CUDA device it launches the hand-written kernel
 (``csrc/flash_attention.cu``, built at first use by
 :mod:`repro_torch.kernels.build`) on the current stream, without a sync, or
-raises. ``flash_attention.launches`` counts kernel launches, so a run can
+raises. bfloat16 runs on the tensor cores (``wgmma`` fed by TMA,
+``csrc/flash_attention_bf16.cuh``); float32 on the CUDA cores. ``flash_attention.launches`` counts kernel launches, so a run can
 show that its main path went through the kernel.
 """
 from __future__ import annotations

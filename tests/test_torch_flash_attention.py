@@ -6,8 +6,12 @@ tests/test_kernels.py's sweep (2e-5 in fp32, 2e-2 in bf16, its
 tolerances), to the JAX ``attention_ref`` at ragged lengths the Pallas
 kernel does not take, and to the JAX ``mea_attention``'s blocked scan
 (2e-4, the tolerance tests/test_kernels.py holds it to the kernel). The
-CUDA kernel is held to the plain version on the card.
+bf16 kernel's arithmetic (tiles of keys, P into P·V as a bf16 hi + lo
+pair) is emulated here and held to the plain version within the card's
+limit. The CUDA kernel is held to the plain version on the card.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +20,8 @@ import torch
 from repro.kernels.flash_attention.fa_kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models.attention import mea_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention import wgmma_gen
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -84,6 +89,83 @@ def test_matches_mea_attention_blocked_scan():
     close(port(arrays, torch.float32, True), want, 2e-4)
 
 
+# ---------------------------------------------------------------------------
+# the bf16 kernel's arithmetic, emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+
+def emulate_bf16_kernel(q, k, v, causal, bk, split_p=True):
+    """What csrc/flash_attention_bf16.cuh computes: bf16 q, k, v; fp32
+    scores scaled after the product; tiles of ``bk`` keys with an online
+    softmax from m = -1e30; l summed from the fp32 p; P into P·V as
+    bf16(p) plus bf16(p - bf16(p)) (or, with ``split_p=False``, bf16(p)
+    alone); fp32 accumulation; acc / max(l, 1e-30) rounded to bf16."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, hq // hkv, sq, d)
+    kf, vf = k.float(), v.float()
+    scale = float(np.float32(1.0 / math.sqrt(d)))
+    m = torch.full((b, hkv, hq // hkv, sq), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, hq // hkv, sq, d))
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kt) * scale
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])[None, :]
+            s = s.masked_fill(keys > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        p_hi = p.bfloat16().float()
+        pv = torch.einsum("bhgqk,bhkd->bhgqd", p_hi, vt)
+        if split_p:
+            p_lo = (p - p_hi).bfloat16().float()
+            pv = pv + torch.einsum("bhgqk,bhkd->bhgqd", p_lo, vt)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, sq, d).bfloat16()
+
+
+def worst_over_card_limit(got, want):
+    """max |got - want| / (atol + rtol·|want|) at the card's bf16 limit."""
+    atol, rtol = CARD_TOL["bfloat16"]
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,bk", [
+    (1, 4, 2, 300, 300, 64, True, 128),      # ragged, GQA
+    (2, 3, 1, 190, 190, 64, True, 128),
+    (1, 4, 4, 257, 257, 64, True, 128),      # G = 1
+    (1, 4, 2, 200, 200, 256, True, 64),
+    (1, 2, 1, 200, 333, 256, False, 64),     # Skv > Sq, not a tile multiple
+])
+def test_bf16_kernel_arithmetic_within_the_card_limit(b, hq, hkv, sq, skv, d,
+                                                      causal, bk):
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in qkv(b, hq, hkv, sq, skv, d, seed=sq))
+    got = emulate_bf16_kernel(q, k, v, causal, bk)
+    assert worst_over_card_limit(got, attention_ref(q, k, v, causal)) <= 1.0
+
+
+def test_p_rounded_once_to_bf16_breaks_the_card_limit():
+    """The limit is tight enough to catch the kernel rounding P once to
+    bf16, which is why P goes into P·V as a hi + lo pair."""
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in qkv(2, 3, 1, 190, 190, 64, seed=190))
+    want = attention_ref(q, k, v, True)
+    once = emulate_bf16_kernel(q, k, v, True, 128, split_p=False)
+    assert worst_over_card_limit(once, want) > 1.0
+
+
+def test_wgmma_header_is_the_generators_output():
+    with open(wgmma_gen.HEADER) as f:
+        assert f.read() == wgmma_gen.render()
+
+
 def test_plain_version_is_the_cpu_path():
     q, k, v = (torch.from_numpy(a) for a in qkv(1, 4, 2, 50, 50, 32, seed=5))
     before = flash_attention.launches
@@ -121,15 +203,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", [
+# (b, hq, hkv, sq, skv, d, causal): every d, Sq off the bf16 kernel's
+# 128-row tiles, GQA and one KV head per query head
+CARD_CASES = [
     (2, 9, 3, 300, 300, 64, True),
     (1, 9, 3, 1, 1, 64, True),
     (1, 8, 1, 128, 256, 64, False),
     (1, 4, 2, 100, 70, 256, True),
     (1, 4, 4, 65, 65, 160, True),
-])
+    (1, 4, 2, 200, 200, 16, True),
+    (1, 4, 2, 130, 130, 32, True),
+    (1, 4, 1, 250, 250, 128, True),
+    (1, 2, 2, 190, 333, 128, False),
+]
+
+
+def test_card_cases_cover_every_head_dim_and_ragged_tiles():
+    assert sorted({c[5] for c in CARD_CASES}) == sorted(HEAD_DIMS)
+    assert any(c[3] % 128 and c[4] % 128 for c in CARD_CASES)
+    assert any(c[1] == c[2] for c in CARD_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal", CARD_CASES)
 def test_cuda_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, d, causal,
                                    dtype):
     _, tdt, _ = DTYPES[dtype]
