@@ -14,11 +14,14 @@
    order); times kernel and plain version at the main path's shape.
 4. Holds ``hist`` against its plain version: bit for bit against the plain
    version on the CPU (odd n, int8/int16/int32 codes with zero weights,
-   SO lanes), and within 1e-5 of each cell's sum of |g·w| against the plain
-   version on the card at full width (MO level 0 and 6, SO with 368 lanes
-   at level 6), whose float atomics add in another order; two launches on
-   the same inputs must give the same bits. Times kernel and plain version
-   at both MO levels.
+   SO lanes, and the kernel's edges: every row in one bin, a node over many
+   chunks, codes outside [0, n_bins), 1 and 16 bins, 368 SO lanes at a
+   small n, nodes without rows), and within 1e-5 of each cell's sum of
+   |g·w| against the plain version on the card at full width (MO level 0
+   and 6, SO with 368 lanes at level 6), whose float atomics add in another
+   order; two launches on the same inputs must give the same bits. Times
+   kernel and plain version at MO levels 0 and 6, SO level 6 and MO level
+   6 with int8 codes.
 5. Holds ``flash_attention`` against its plain version on the card (fp32
    within 2e-5, rtol = atol as tests/test_kernels.py; bf16 within atol
    1e-3 plus rtol 1e-2, about an ulp),
@@ -365,18 +368,89 @@ def check_small(device, seed=11):
 # hist: kernel vs plain
 # ---------------------------------------------------------------------------
 
-def hist_inputs(n, p, out, S, n_nodes, n_bins, code_dtype, seed, device):
+def hist_inputs(n, p, out, S, n_nodes, n_bins, code_dtype, seed, device,
+                edge=None):
     """codes, node ids, gradients and weights, ~5% of the weights zero (the
-    padded rows of a class block)."""
+    padded rows of a class block). ``edge`` bends them to one edge of the
+    kernel: ``"one_bin"`` (every row in bin n_bins - 1 of every feature),
+    ``"out_of_range"`` (about 1 code in 8 outside [0, n_bins), both sides),
+    ``"empty_nodes"`` (rows only in the even nodes: the odd ones have
+    none)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     codes = torch.randint(0, n_bins, (n, p), generator=g, device=device,
-                          dtype=torch.int32).to(code_dtype)
+                          dtype=torch.int32)
     nid = torch.randint(0, n_nodes, (S, n), generator=g, device=device,
                         dtype=torch.int32)
     grad = torch.randn((S, n, out), generator=g, device=device)
     w = (torch.rand((n,), generator=g, device=device) > 0.05).float()
-    return codes, nid, grad, w
+    if edge == "one_bin":
+        codes.fill_(n_bins - 1)
+    elif edge == "out_of_range":
+        hi = torch.iinfo(code_dtype).max
+        bad = torch.tensor([-1, n_bins, min(hi, n_bins + 37), hi,
+                            torch.iinfo(code_dtype).min], dtype=torch.int32,
+                           device=device)
+        pick = torch.randint(0, 8 * len(bad), (n, p), generator=g,
+                             device=device)
+        codes = torch.where(pick < len(bad), bad[pick.clamp(max=len(bad) - 1)],
+                            codes)
+    elif edge == "empty_nodes":
+        nid = nid - nid % 2
+    elif edge is not None:
+        raise ValueError(f"unknown edge {edge!r}")
+    return codes.to(code_dtype), nid, grad, w
+
+
+def hist_expected(codes, nid, g, w, n_nodes, n_bins):
+    """What the kernel computes: the plain version, with a code outside
+    [0, n_bins) adding its row to no cell of that feature (the kernel's
+    spare bin, never written out)."""
+    from repro_torch.kernels.hist.ref import histogram_ref
+    inside = (codes >= 0) & (codes < n_bins)
+    if bool(inside.all()):
+        return histogram_ref(codes, nid, g, w, n_nodes, n_bins)
+    spare = torch.where(inside, codes.to(torch.int32), n_bins)
+    sums, cnt = histogram_ref(spare, nid, g, w, n_nodes, n_bins + 1)
+    return (sums[:, :, :, :n_bins].contiguous(),
+            cnt[:, :, :, :n_bins].contiguous())
+
+
+def hist_cases():
+    """(exact, full): cases bit-equal to the plain version on the CPU, and
+    the three full-width shapes of the training path, each ``(name,
+    (n, p, out, S, n_nodes, n_bins, code dtype)[, edge])``."""
+    i8, i16, i32 = torch.int8, torch.int16, torch.int32
+    exact = [(f"{name} n={n}", (n, 37, out, S, 8, N_BINS, dt))
+             for n in (1, 97, 130)
+             for name, out, S in (("MO", 37, 1), ("SO", 1, 37))
+             for dt in (i8, i16, i32)]
+    exact += [
+        ("MO 2,000 rows level 6", (2000, P, P, 1, 64, N_BINS, i32)),
+        ("MO every row in one bin", (3000, 37, 37, 1, 4, N_BINS, i32),
+         "one_bin"),
+        ("SO every row in one bin", (3000, 37, 1, 37, 4, N_BINS, i32),
+         "one_bin"),
+        ("MO 20,000 rows in one node", (20000, 37, 37, 1, 1, N_BINS, i32)),
+        ("SO 20,000 rows in two nodes", (20000, 37, 1, 5, 2, N_BINS, i32)),
+        ("MO codes outside [0, n_bins), int8",
+         (600, 37, 37, 1, 4, N_BINS, i8), "out_of_range"),
+        ("MO codes outside [0, n_bins), int32",
+         (600, 37, 37, 1, 4, N_BINS, i32), "out_of_range"),
+        ("SO codes outside [0, n_bins), int16",
+         (600, 37, 1, 37, 4, N_BINS, i16), "out_of_range"),
+        ("MO leaf sums, n_bins = 1", (3000, 1, P, 1, 128, 1, i8)),
+        ("SO leaf sums, n_bins = 1", (3000, 1, 1, P, 128, 1, i8)),
+        ("MO n_bins = 16", (500, 37, 37, 1, 8, 16, i32)),
+        ("SO n_bins = 16", (500, 37, 1, 37, 8, 16, i8)),
+        ("SO 368 lanes, small n", (130, P, 1, P, 8, N_BINS, i32)),
+        ("MO empty nodes", (700, 37, 37, 1, 8, N_BINS, i32), "empty_nodes"),
+        ("SO empty nodes", (700, 37, 1, 37, 8, N_BINS, i32), "empty_nodes"),
+    ]
+    full = [("MO level 0", (FIT_ROWS, P, P, 1, 1, N_BINS, i32)),
+            ("MO level 6", (FIT_ROWS, P, P, 1, 64, N_BINS, i32)),
+            ("SO level 6", (FIT_ROWS, P, 1, P, 64, N_BINS, i32))]
+    return exact, full
 
 
 def hist_bytes_ops(n, p, out, S, n_nodes, n_bins, code_bytes):
@@ -387,24 +461,29 @@ def hist_bytes_ops(n, p, out, S, n_nodes, n_bins, code_bytes):
     return nbytes, n * p * S * out
 
 
-def check_hist(device, exact_cases, card_cases):
+def check_hist(device, exact_cases, card_cases, histogram=None):
     """hist vs plain on every case; returns the largest abs difference.
 
     ``exact_cases`` run the kernel on the card and the plain version on the
     CPU: they must agree to the bit. ``card_cases`` run both on the card at
-    full width: within HIST_TOL of each cell's sum of |g·w|."""
-    from repro_torch.kernels.hist.ops import histogram
+    full width: within HIST_TOL of each cell's sum of |g·w|. ``histogram``
+    is the function under test, by default the port's wrapper."""
     from repro_torch.kernels.hist.ref import histogram_ref
+    if histogram is None:
+        from repro_torch.kernels.hist.ops import histogram
     cpu = torch.device("cpu")
     worst = 0.0
-    for i, (name, shape) in enumerate(exact_cases + card_cases):
+    for i, (name, shape, *edge) in enumerate(exact_cases + card_cases):
         exact = i < len(exact_cases)
-        args = hist_inputs(*shape, seed=200 + i, device=device)
+        args = hist_inputs(*shape, seed=200 + i, device=device, edge=(
+            edge[0] if edge else None))
         nn, nb = shape[4], shape[5]
         got = histogram(*args, nn, nb)
         again = histogram(*args, nn, nb)
-        ref_args = [a.to(cpu) for a in args] if exact else args
-        ref = histogram_ref(*ref_args, nn, nb)
+        if exact:
+            ref = hist_expected(*[a.to(cpu) for a in args], nn, nb)
+        else:
+            ref = histogram_ref(*args, nn, nb)
         sync(device)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"hist {name}: two launches differ")
@@ -953,22 +1032,16 @@ def main() -> int:
         f"({timing['bytes']} bytes at 3.35 TB/s); no single PyTorch call "
         f"traverses trees, so there is no library yardstick")
 
-    i32 = torch.int32
-    mo0 = (FIT_ROWS, P, P, 1, 1, N_BINS, i32)
-    mo6 = (FIT_ROWS, P, P, 1, 64, N_BINS, i32)
-    exact = [(f"{name} n={n}", (n, 37, out, S, 8, N_BINS, dt))
-             for n in (1, 97, 130)
-             for name, out, S in (("MO", 37, 1), ("SO", 1, 37))
-             for dt in (torch.int8, torch.int16, i32)]
-    exact.append(("MO 2,000 rows level 6", (2000, P, P, 1, 64, N_BINS, i32)))
-    full = [("MO level 0", mo0), ("MO level 6", mo6),
-            ("SO level 6", (FIT_ROWS, P, 1, P, 64, N_BINS, i32))]
+    exact, full = hist_cases()
     hist_worst = check_hist(device, exact, full)
+    mo6 = full[1][1]
     hist_timing = {}
-    for level, shape in ((0, mo0), (6, mo6)):
+    for key, (label, shape) in zip(
+            ("level0", "level6", "so_level6", "level6_int8"),
+            full + [("MO level 6, int8 codes", mo6[:6] + (torch.int8,))]):
         ht = time_hist(device, shape)
-        hist_timing[level] = ht
-        log(f"hist at MO level {level} full width: kernel {ht['ms']!r} ms, "
+        hist_timing[key] = ht
+        log(f"hist at {label} full width: kernel {ht['ms']!r} ms, "
             f"plain {ht['plain_ms']!r} ms, bound {ht['bound_ms']!r} ms "
             f"({ht['bound_by']}: {ht['bytes']} bytes at 3.35 TB/s, "
             f"{ht['ops']} adds at 67 TFLOP/s)")
@@ -1005,7 +1078,7 @@ def main() -> int:
     check_training_small(device)
     check_serving_small(device)
 
-    ht = hist_timing[6]
+    ht = hist_timing["level6"]
     kernels = [{
         "name": "tree_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
@@ -1031,7 +1104,9 @@ def main() -> int:
            for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")}}]
     print(json.dumps({"kernels": kernels, "launches_per_call": counts,
-                      "hist_level0": hist_timing[0],
+                      "hist_level0": hist_timing["level0"],
+                      "hist_so_level6": hist_timing["so_level6"],
+                      "hist_level6_int8": hist_timing["level6_int8"],
                       "flash_attention_bf16": dict(
                           fa_timing[torch.bfloat16],
                           max_abs_err=fa_worst[torch.bfloat16],

@@ -14,15 +14,21 @@ import torch
 from repro.kernels.hist.hist_kernel import histogram_pallas
 from repro.kernels.hist.ref import histogram_ref as jax_histogram_ref
 from repro_torch.forest.hist import build_histogram
-from repro_torch.kernels.hist.ops import histogram, node_order
+from repro_torch.kernels.hist.ops import (CHUNK, MAX_SMEM, blocks, histogram,
+                                          narrow_codes, node_layout,
+                                          node_order, plan)
 from repro_torch.kernels.hist.ref import histogram_ref
 
 CODE_TYPES = {"int8": (np.int8, torch.int8), "int16": (np.int16, torch.int16),
               "int32": (np.int32, torch.int32)}
 
 
-def inputs(n, p, out, n_nodes, n_bins, seed, lanes=1, zero_every=0):
-    """codes [n, p], node_id [lanes, n], g [lanes, n, out], w [n] (numpy)."""
+def inputs(n, p, out, n_nodes, n_bins, seed, lanes=1, zero_every=0,
+           edge=None):
+    """codes [n, p], node_id [lanes, n], g [lanes, n, out], w [n] (numpy).
+    ``edge``: "one_bin" (every code n_bins - 1), "out_of_range" (about one
+    code in 8 outside [0, n_bins), both sides, within int8), "empty_nodes"
+    (rows only in even nodes)."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, n_bins, (n, p)).astype(np.int32)
     nid = rng.integers(0, n_nodes, (lanes, n)).astype(np.int32)
@@ -30,7 +36,25 @@ def inputs(n, p, out, n_nodes, n_bins, seed, lanes=1, zero_every=0):
     w = rng.uniform(0.0, 1.0, n).astype(np.float32)
     if zero_every:
         w[::zero_every] = 0.0
+    if edge == "one_bin":
+        codes[:] = n_bins - 1
+    elif edge == "out_of_range":
+        bad = np.array([-1, n_bins, n_bins + 37, 127, -128], np.int32)
+        pick = rng.integers(0, 8 * len(bad), (n, p))
+        codes = np.where(pick < len(bad), bad[np.minimum(pick, len(bad) - 1)],
+                         codes).astype(np.int32)
+    elif edge == "empty_nodes":
+        nid -= nid % 2
     return codes, nid, g, w
+
+
+def expected(codes, nid, g, w, n_nodes, n_bins):
+    """The plain version, with a code outside [0, n_bins) adding its row to
+    no cell of its feature (the kernel's spare bin, never written out)."""
+    spare = torch.where((codes >= 0) & (codes < n_bins), codes.to(torch.int32),
+                        n_bins)
+    sums, cnt = histogram_ref(spare, nid, g, w, n_nodes, n_bins + 1)
+    return sums[:, :, :, :n_bins], cnt[:, :, :, :n_bins]
 
 
 def jax_lane(codes, nid, g, w, n_nodes, n_bins, s=0):
@@ -159,6 +183,30 @@ def test_node_order_groups_rows_by_node_in_row_order():
             np.testing.assert_array_equal(rows, np.flatnonzero(nid[s] == k))
 
 
+@pytest.mark.parametrize("lanes,n,n_nodes", [(1, 0, 1), (1, 1, 8), (3, 97, 8),
+                                             (2, 500, 1), (4, 300, 64)])
+def test_node_layout_starts_every_node_on_a_chunk(lanes, n, n_nodes):
+    """Each node's rows, in row order, from a multiple of CHUNK, its range
+    whole chunks; -1 everywhere else; rows outside [0, n_nodes) in no
+    node."""
+    rng = np.random.default_rng(n)
+    nid = rng.integers(-1, n_nodes + 1, (lanes, n)).astype(np.int32)
+    src, offsets = node_layout(torch.from_numpy(nid), n_nodes)
+    src, offsets = src.numpy(), offsets.numpy()
+    assert src.shape[1] % CHUNK == 0 and offsets[:, -1].max() <= src.shape[1]
+    for s in range(lanes):
+        seen = np.zeros(src.shape[1], bool)
+        for k in range(n_nodes):
+            a, b = offsets[s, k], offsets[s, k + 1]
+            assert a % CHUNK == 0 and (b - a) % CHUNK == 0
+            rows = np.flatnonzero(nid[s] == k)
+            np.testing.assert_array_equal(src[s, a:a + len(rows)], rows)
+            assert (src[s, a + len(rows):b] == -1).all()
+            assert b - a < len(rows) + CHUNK
+            seen[a:b] = True
+        assert (src[s, ~seen] == -1).all()
+
+
 @pytest.mark.parametrize("bad", ["codes_dtype", "node_dtype", "g_dtype",
                                  "rows", "contiguous", "device", "n_bins"])
 def test_wrapper_rejects_bad_input(bad):
@@ -183,6 +231,104 @@ def test_wrapper_rejects_bad_input(bad):
 
 
 # ---------------------------------------------------------------------------
+# the launch plan and the narrowed codes (host side of the CUDA path)
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = [(368, 368, 64), (368, 1, 64), (1, 368, 1), (1, 1, 1),
+               (37, 37, 16), (37, 1, 64), (5, 3, 8), (100, 1, 190),
+               (13, 2, 150)]
+
+
+# the default plan, and the tiles the probe compares
+PLAN_KINDS = [{}, {"n_nodes": 1}, {"warps": 1}, {"warps": 2},
+              {"kind": "columns"}, {"kind": "columns", "per": 1}]
+
+
+@pytest.mark.parametrize("kw", PLAN_KINDS)
+@pytest.mark.parametrize("p,out,n_bins", PLAN_SHAPES)
+def test_plan_fits_shared_memory_and_aligns_the_codes(p, out, n_bins, kw):
+    pl = plan(p, out, n_bins, **kw)
+    assert pl.smem <= MAX_SMEM
+    if not kw:
+        assert pl.kind == ("features" if out == 1 else "columns")
+        # no warp whose features all lie past p
+        assert (pl.warps - 1) * pl.feats // pl.warps < p
+    assert pl.feats == pl.warps * (pl.per if pl.kind == "columns" else 128)
+    assert pl.feature_tiles * pl.feats >= p
+    assert pl.tile >= pl.feats
+    if pl.kind == "features":
+        assert pl.tile % 16 == 0                 # aligned bulk copies
+    assert pl.code_stride == pl.feature_tiles * pl.tile
+    assert pl.col_tiles * pl.width >= out + 1
+
+
+@pytest.mark.parametrize("kw", PLAN_KINDS)
+@pytest.mark.parametrize("p,out,n_bins", PLAN_SHAPES)
+@pytest.mark.parametrize("S,n_nodes", [(1, 1), (2, 4), (3, 1)])
+def test_plan_blocks_cover_every_cell_once(p, out, n_bins, S, n_nodes, kw):
+    """Every (lane, node, feature, column) cell, the count column
+    included, belongs to exactly one block, and a block holds one (lane,
+    node): no cell's rows are split between blocks."""
+    pl = plan(p, out, n_bins, **kw)
+    owner = np.full((S, n_nodes, p, out + 1), -1)
+    for i, (s, node, j0, j1, c0, c1) in enumerate(
+            blocks(pl, S, p, out, n_nodes)):
+        assert 0 <= j0 < j1 <= p and 0 <= c0 < c1 <= out + 1
+        cells = owner[s, node, j0:j1, c0:c1]
+        assert (cells == -1).all(), "a cell in two blocks"
+        owner[s, node, j0:j1, c0:c1] = i
+    assert (owner >= 0).all(), "a cell in no block"
+
+
+def test_plan_refuses_bins_that_do_not_fit():
+    with pytest.raises(ValueError):
+        plan(10, 10, 300)                        # past one-byte codes
+
+
+def test_plan_at_photons_width():
+    """MO: two blocks of 6 warps × 2 features share an SM; a level of one
+    node takes 12 warps × 1 feature (more blocks for its last wave); SO:
+    one block of 3 adding warps over all 368 features."""
+    mo, root, so = plan(368, 368, 64), plan(368, 368, 64, 1), plan(368, 1, 64)
+    assert (mo.kind, mo.warps, mo.per, mo.feats) == ("columns", 6, 2, 12)
+    assert 2 * (mo.smem + 1024) <= 228 * 1024
+    assert (root.warps, root.per, root.feats) == (12, 1, 12)
+    assert (so.kind, so.warps, so.feats, so.feature_tiles) == (
+        "features", 3, 384, 1)
+
+
+@pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
+@pytest.mark.parametrize("n_bins", [1, 64, 200])
+def test_narrowed_codes_keep_every_histogram_bit(code_type, n_bins):
+    """The narrowed codes (one byte; padding and codes outside [0, n_bins)
+    at the spare bin n_bins) give the same histograms as the codes they
+    come from."""
+    np_t, _ = CODE_TYPES[code_type]
+    info = np.iinfo(np_t)
+    codes, nid, g, w = inputs(120, 7, 2, 4, min(n_bins, info.max), seed=9,
+                              edge="out_of_range")
+    codes = np.clip(codes, info.min, info.max).astype(np_t)
+    t = [torch.from_numpy(a) for a in (codes, nid, g, w)]
+    pl = plan(7, 1, n_bins)                      # SO: narrowed codes
+    narrow = narrow_codes(t[0], n_bins, pl)
+    assert narrow.shape == (121, pl.code_stride)
+    assert narrow.dtype == torch.uint8
+    assert (narrow[120] == n_bins).all()         # the spare row
+    wide = narrow[:120].to(torch.int32)
+    # feature j at column (j // feats) * tile + j % feats; the rest spare
+    where = [(j // pl.feats) * pl.tile + j % pl.feats for j in range(7)]
+    rest = sorted(set(range(pl.code_stride)) - set(where))
+    assert (wide[:, rest] == n_bins).all()
+    inside = (t[0] >= 0) & (t[0] < n_bins)
+    assert torch.equal(wide[:, where], torch.where(
+        inside, t[0].to(torch.int32), n_bins))
+    got = histogram_ref(wide[:, where], t[1], t[2], t[3], 4, n_bins + 1)
+    ref = expected(*t, 4, n_bins)
+    assert torch.equal(got[0][:, :, :, :n_bins], ref[0])
+    assert torch.equal(got[1][:, :, :, :n_bins], ref[1])
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel (needs a GPU)
 # ---------------------------------------------------------------------------
 
@@ -194,23 +340,69 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (n, p, out, lanes, n_nodes, n_bins, edge): odd sizes, and the edges of
+# the kernel's design (a node over many chunks and ring stages, one bin,
+# codes outside [0, n_bins), the leaf sums' one bin, 16 bins, 368 SO lanes,
+# nodes without rows)
+CUDA_CASES = [
+    (1, 3, 2, 1, 8, 64, None), (130, 37, 37, 1, 8, 64, None),
+    (97, 37, 1, 37, 8, 64, None),
+    (5000, 37, 37, 1, 1, 64, None), (5000, 37, 1, 3, 2, 64, None),
+    (700, 37, 37, 1, 4, 64, "one_bin"), (700, 37, 1, 37, 4, 64, "one_bin"),
+    (600, 37, 37, 1, 4, 64, "out_of_range"),
+    (600, 37, 1, 37, 4, 64, "out_of_range"),
+    (900, 1, 368, 1, 16, 1, None), (900, 1, 1, 368, 16, 1, None),
+    (500, 37, 37, 1, 8, 16, None), (500, 37, 1, 37, 8, 16, None),
+    (130, 368, 1, 368, 8, 64, None),
+    (700, 37, 37, 1, 8, 64, "empty_nodes"),
+    (700, 37, 1, 37, 8, 64, "empty_nodes"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
-@pytest.mark.parametrize("n,p,out,lanes", [(1, 3, 2, 1), (130, 37, 37, 1),
-                                           (97, 37, 1, 37)])
+@pytest.mark.parametrize("n,p,out,lanes,n_nodes,n_bins,edge", CUDA_CASES)
 def test_cuda_kernel_equals_plain_cpu_version(cuda_device, n, p, out, lanes,
+                                              n_nodes, n_bins, edge,
                                               code_type):
     """In row order with separate roundings, the kernel equals the plain
-    version on the CPU to the bit."""
-    codes, nid, g, w = inputs(n, p, out, 8, 64, seed=n, lanes=lanes,
-                              zero_every=4)
+    version on the CPU to the bit (a code outside [0, n_bins) adds to no
+    cell), and two launches give the same bits."""
+    codes, nid, g, w = inputs(n, p, out, n_nodes, n_bins, seed=n,
+                              lanes=lanes, zero_every=4, edge=edge)
     np_t, t_t = CODE_TYPES[code_type]
-    args = [torch.from_numpy(codes.astype(np_t)), torch.from_numpy(nid),
-            torch.from_numpy(g), torch.from_numpy(w)]
+    info = np.iinfo(np_t)
+    args = [torch.from_numpy(np.clip(codes, info.min, info.max).astype(np_t)),
+            torch.from_numpy(nid), torch.from_numpy(g), torch.from_numpy(w)]
     before = histogram.launches
-    got = histogram(*(a.to(cuda_device) for a in args), 8, 64)
-    assert histogram.launches == before + 1
-    ref = histogram_ref(*args, 8, 64)
+    dev_args = [a.to(cuda_device) for a in args]
+    got = histogram(*dev_args, n_nodes, n_bins)
+    again = histogram(*dev_args, n_nodes, n_bins)
+    assert histogram.launches == before + 2
+    ref = expected(*args, n_nodes, n_bins)
     torch.cuda.synchronize()
-    assert torch.equal(got[0].cpu(), ref[0])
-    assert torch.equal(got[1].cpu(), ref[1])
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
+@pytest.mark.parametrize("n_bins", [64, 200])
+def test_cuda_narrowing_equals_plain_version(cuda_device, code_type, n_bins):
+    from repro_torch.kernels.hist.ops import _lib
+    np_t, _ = CODE_TYPES[code_type]
+    info = np.iinfo(np_t)
+    codes = inputs(333, 29, 1, 2, min(n_bins, info.max), seed=4,
+                   edge="out_of_range")[0]
+    codes = torch.from_numpy(np.clip(codes, info.min, info.max).astype(np_t))
+    pl = plan(29, 1, n_bins)
+    ref = narrow_codes(codes, n_bins, pl)
+    got = torch.empty_like(ref, device=cuda_device)
+    rc = _lib().hist_narrow(codes.to(cuda_device).data_ptr(),
+                            codes.element_size(), got.data_ptr(), 333, 29,
+                            pl.feats, pl.tile, pl.code_stride, n_bins,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
