@@ -8,10 +8,12 @@
    kernels from the sources in this checkout, one nvcc each, in parallel,
    and prints ptxas's lines.
 3. Holds ``tree_predict`` against its plain PyTorch version on the card, at
-   the shapes the generation path gives it (MO at CaloForest photons width,
-   SO at one step's shape, odd row counts, +inf sentinels and threshold
-   ties), to a max abs difference of 1e-6 (both sum the trees in the same
-   order); times kernel and plain version at the main path's shape.
+   the shapes the generation path gives it (MO and SO at CaloForest photons
+   width, the latency shapes, pions width, odd row counts, +inf sentinels
+   and threshold ties) and at the kernels' edges (depth 1, 8, 9 and 16, 400
+   and 512 trees), bit for bit (both sum the trees in the same order);
+   times kernel and plain version at MO and SO full width, MO at n=1,024
+   and 4,096 a class and pions width.
 4. Holds ``hist`` against its plain version: bit for bit against the plain
    version on the CPU (odd n, int8/int16/int32 codes with zero weights,
    SO lanes, and the kernel's edges: every row in one bin, a node over many
@@ -56,7 +58,8 @@
    launches per prefill and none in two decode steps; one prefill timed
    (seconds, tokens/s) and one profiled for the kernel's share.
 9. Checks every path against the plain PyTorch path on the CPU at a small
-   size (a solve, a save -> load round trip, a two-moons fit with the same
+   size (a solve, a save -> load round trip, and logs whether one seed
+   gives the card and the CPU different rows, a two-moons fit with the same
    noise, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
    that a warm-start extension on the card equals a cold fit bit for bit.
 
@@ -83,7 +86,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
-KERNEL_TOL = 1e-6             # kernel and plain version sum in the same order
+KERNEL_TOL = 0.0              # kernel and plain version sum in the same order
 # hist vs the plain version on the card, whose index_add_ adds with float
 # atomics in another order: relative to each cell's sum of |g·w|
 HIST_TOL = 1e-5
@@ -168,6 +171,40 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# tree_predict at the generation path's shapes (B, S, T, depth, p, out, n),
+# n rows a class: CaloForest photons MO and SO, the latency shapes (n = 1,000
+# and 4,000 rows a call, padded to 1,024 and 4,096 a class), pions width
+TREE_TIMED = [("MO full width", (N_Y, 1, N_TREES, DEPTH, P, P, 8000)),
+              ("SO full width", (N_Y, P, N_TREES, DEPTH, P, 1, 8000)),
+              ("MO n=1024", (N_Y, 1, N_TREES, DEPTH, P, P, 1024)),
+              ("MO n=4096", (N_Y, 1, N_TREES, DEPTH, P, P, 4096)),
+              ("pions width", (N_Y, 1, N_TREES, DEPTH, 533, 533, 8000))]
+
+
+def tree_predict_cases():
+    """tree_predict's check cases: the timed shapes, odd row counts, and the
+    kernels' edges: depth 1, 9 (leaves read through L1) and 16 (the deepest,
+    uint16 indices), 400 and 512 trees (400 at n=8,000 a class takes two
+    chunks of the leaf-index scratch), odd widths."""
+    cases = list(TREE_TIMED)
+    for n in (1, 97, 130):
+        cases.append((f"MO n={n}", (N_Y, 1, N_TREES, DEPTH, P, P, n)))
+        cases.append((f"SO n={n}", (2, P, N_TREES, DEPTH, P, 1, n)))
+    cases += [("MO depth 1", (3, 1, 5, 1, 37, 37, 97)),
+              ("SO depth 1", (3, 37, 5, 1, 37, 1, 97)),
+              ("MO depth 8", (N_Y, 1, N_TREES, 8, P, P, 1000)),
+              ("MO depth 9", (N_Y, 1, N_TREES, 9, P, P, 1000)),
+              ("SO depth 9", (2, 37, N_TREES, 9, 37, 1, 1000)),
+              ("MO depth 16", (2, 1, 2, 16, 37, 5, 300)),
+              ("SO depth 16", (2, 3, 2, 16, 37, 1, 300)),
+              ("MO T=400", (N_Y, 1, 400, 2, P, P, 8000)),
+              ("SO T=400", (2, 37, 400, 3, 37, 1, 130)),
+              ("MO T=512, out 37", (3, 1, 512, 3, 37, 37, 130)),
+              ("MO T=1, out 2", (2, 1, 1, 7, 5, 2, 97)),
+              ("MO S=3, out 6", (2, 3, 5, 4, 9, 6, 130))]
+    return cases
+
+
 def check_kernel(device, cases):
     """Kernel vs plain on every case; returns the largest abs difference."""
     from repro_torch.kernels.tree_predict.ops import forest_predict
@@ -201,7 +238,7 @@ def time_kernel(device, shape):
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=nbytes)
+                bytes=nbytes, ops=ops)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +398,14 @@ def check_small(device, seed=11):
         X2, y2 = loaded.generate(300, seed=1)
         if not (np.array_equal(X1, X2) and np.array_equal(y1, y2)):
             raise AssertionError("save -> load changed the generated rows")
+        # a seed is reproducible on one device type; the card's generator
+        # (Philox) and the CPU's (Mersenne Twister) draw different noise
+        X3, _ = TabularGenerator.load(base, device="cpu").generate(300, seed=1)
     log("save -> load round trip: identical rows")
+    log(f"seed 1 on {device.type} vs on cpu: rows "
+        f"{'identical' if np.array_equal(X1, X3) else 'differ'} (the two "
+        f"devices draw different noise for one seed, by design), max abs "
+        f"diff {np.abs(X1 - X3).max()!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -1019,18 +1063,17 @@ def main() -> int:
 
     # -- kernels against their plain versions -------------------------------
     m = N_ROWS // N_Y
-    mo = (N_Y, 1, N_TREES, DEPTH, P, P, m)
-    cases = [("MO full width", mo),
-             ("SO one step", (N_Y, P, N_TREES, DEPTH, P, 1, 1024))]
-    for n in (1, 97, 130):
-        cases.append((f"MO n={n}", (N_Y, 1, N_TREES, DEPTH, P, P, n)))
-        cases.append((f"SO n={n}", (2, P, N_TREES, DEPTH, P, 1, n)))
-    worst = check_kernel(device, cases)
-    timing = time_kernel(device, mo)
-    log(f"tree_predict at MO full width: kernel {timing['ms']!r} ms, plain "
-        f"{timing['plain_ms']!r} ms, bound {timing['bound_ms']!r} ms "
-        f"({timing['bytes']} bytes at 3.35 TB/s); no single PyTorch call "
-        f"traverses trees, so there is no library yardstick")
+    worst = check_kernel(device, tree_predict_cases())
+    tp_timing = {}
+    for label, shape in TREE_TIMED:
+        tp_timing[label] = tt = time_kernel(device, shape)
+        log(f"tree_predict at {label} {shape}: kernel {tt['ms']!r} ms, plain "
+            f"{tt['plain_ms']!r} ms, bound {tt['bound_ms']!r} ms "
+            f"({tt['bound_by']}: {tt['bytes']} bytes at 3.35 TB/s, "
+            f"{tt['ops']} operations at 67 TFLOP/s)")
+    timing = tp_timing["MO full width"]
+    log("tree_predict has no library yardstick: no single PyTorch call "
+        "traverses trees")
 
     exact, full = hist_cases()
     hist_worst = check_hist(device, exact, full)
@@ -1104,6 +1147,7 @@ def main() -> int:
            for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                        "library_ms")}}]
     print(json.dumps({"kernels": kernels, "launches_per_call": counts,
+                      "tree_predict": tp_timing,
                       "hist_level0": hist_timing["level0"],
                       "hist_so_level6": hist_timing["so_level6"],
                       "hist_level6_int8": hist_timing["level6_int8"],

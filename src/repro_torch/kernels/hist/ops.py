@@ -131,6 +131,35 @@ def plan(p: int, out: int, n_bins: int, n_nodes: int = 2,
                      f"{MAX_SMEM} bytes of shared memory of a block")
 
 
+def max_bins(p: int, out: int) -> int:
+    """The most bins the kernel takes for p features and out columns, at a
+    level of one node and of several (0 if none fits)."""
+    def fits(n_bins: int) -> bool:
+        try:
+            for n_nodes in (1, 2):
+                plan(p, out, n_bins, n_nodes)
+        except ValueError:
+            return False
+        return True
+    lo, hi = 0, 255                 # plan is monotone in n_bins
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def check_bins(p: int, out: int, n_bins: int) -> None:
+    """Raise ``ValueError`` unless the kernel takes ``n_bins`` bins for p
+    features and out columns (SO: out = 1). A card fit calls this before
+    any device work."""
+    most = max_bins(p, out)
+    if n_bins > most:
+        raise ValueError(
+            f"n_bins={n_bins}: the CUDA hist kernel takes at most {most} bins "
+            f"at p={p} (out={out}); use n_bins <= {most} on the card, or fit "
+            f"on the CPU (device='cpu'), which takes any n_bins")
+
+
 def blocks(pl: Plan, S: int, p: int, out: int, n_nodes: int):
     """Each block of a launch as the kernel maps its index: ``(lane, node,
     features [j0, j1), columns [c0, c1))``, clipped to the p features and

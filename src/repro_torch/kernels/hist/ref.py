@@ -8,6 +8,9 @@ CPU, so this version equals ``repro.kernels.hist.ref.histogram_ref`` to the
 bit, and the kernel, which also adds each cell's rows in order, equals it
 too. On a CUDA tensor ``index_add_`` uses float atomics, whose order (and so
 the last bits of a sum) changes from run to run.
+
+A code outside ``[0, n_bins)`` adds its row to no cell, as in the kernel: it
+goes to a spare cell that is never returned.
 """
 from __future__ import annotations
 
@@ -33,11 +36,14 @@ def histogram_ref(codes, node_id, g, w, n_nodes: int, n_bins: int):
     lane = torch.arange(S, device=dev)[:, None]
     base = (lane * n_nodes + node_id.long()) * (p * n_bins)     # [S, n]
     cells = S * n_nodes * p * n_bins
-    sums = torch.zeros((cells, out), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((cells,), dtype=torch.float32, device=dev)
+    sums = torch.zeros((cells + 1, out), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((cells + 1,), dtype=torch.float32, device=dev)
     for j in range(p):
-        seg = (base + (j * n_bins + codes[:, j].long())[None, :]).reshape(-1)
+        code = codes[:, j].long()
+        seg = (base + (j * n_bins + code)[None, :])
+        seg = torch.where(((code >= 0) & (code < n_bins))[None, :], seg,
+                          cells).reshape(-1)
         sums.index_add_(0, seg, gw)
         cnt.index_add_(0, seg, ws)
-    return (sums.view(S, n_nodes, p, n_bins, out),
-            cnt.view(S, n_nodes, p, n_bins))
+    return (sums[:cells].view(S, n_nodes, p, n_bins, out),
+            cnt[:cells].view(S, n_nodes, p, n_bins))

@@ -41,6 +41,7 @@ from repro_torch.core import interpolants as itp
 from repro_torch.forest.binning import edges_with_sentinel, pack_codes, transform
 from repro_torch.forest.boosting import fit_ensemble
 from repro_torch.kernels.dispatch import Device, resolve_device
+from repro_torch.kernels.hist.ops import check_bins
 from repro_torch.tabgen.artifacts import RESULT_FIELDS, ForestArtifacts
 from repro_torch.tabgen.sampling import stream_seed
 from repro_torch.train import checkpoint as _ckpt
@@ -316,6 +317,10 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
             "out-of-core dataset stores are not ported yet; pass the rows "
             "as an array")
     device = resolve_device(device)
+    if device.type == "cuda":
+        # the hist kernel's limit, before any binning or device work
+        p_in = int(np.shape(X)[1])
+        check_bins(p_in, p_in if fcfg.multi_output else 1, fcfg.n_bins)
     stats = None
     if warm_start is not None:
         Xs = X if hasattr(X, "shape") else np.asarray(X, np.float32)

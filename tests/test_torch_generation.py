@@ -72,6 +72,13 @@ def diff_so(moons):
     return _fit(moons, method="diffusion", n_t=6)
 
 
+@pytest.fixture(scope="module")
+def flow_deep(moons):
+    """Depth 9: past the old CUDA kernel's uint8 leaf indices."""
+    return _fit(moons, method="flow", multi_output=True, n_t=3, n_trees=4,
+                max_depth=9)
+
+
 def ulps(a, b) -> int:
     ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
     ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
@@ -195,7 +202,7 @@ def jax_solve_inputs(seed, n_y, m, p, n_steps):
 
 @pytest.mark.parametrize("solver,art_name", [
     ("euler", "flow_so"), ("euler", "flow_mo"), ("heun", "flow_so"),
-    ("ddim", "diff_so"), ("em", "diff_so")])
+    ("ddim", "diff_so"), ("em", "diff_so"), ("euler", "flow_deep")])
 def test_solve_all_classes_matches_jax(request, solver, art_name):
     art = request.getfixturevalue(art_name)
     port = to_port(art)
@@ -334,7 +341,8 @@ def port_impute_with_jax_noise(art, port, X_missing, y, seed, rounds):
 
 
 @pytest.mark.parametrize("art_name,rounds", [("flow_so", 1), ("flow_so", 3),
-                                             ("flow_mo", 2), ("diff_so", 3)])
+                                             ("flow_mo", 2), ("diff_so", 3),
+                                             ("flow_deep", 2)])
 def test_impute_matches_jax(request, moons, art_name, rounds):
     art = request.getfixturevalue(art_name)
     port = to_port(art)
@@ -430,3 +438,61 @@ def test_slice_end_to_end_from_jax_model(tmp_path, flow_so, sampler):
     # other noise, same model: the same distribution to within sampling error
     np.testing.assert_allclose(G.mean(0), G_j.mean(0), atol=0.15)
     np.testing.assert_allclose(G.std(0), G_j.std(0), atol=0.15)
+
+
+def test_deep_model_loads_samples_and_imputes_on_the_cpu(tmp_path, flow_deep,
+                                                         moons):
+    """A depth-9 model trained and saved by the JAX package goes load ->
+    sample -> impute through the port on the CPU (the plain path takes any
+    depth): JAX's labels, finite rows, observed cells kept."""
+    base = flow_deep.save(str(tmp_path / "deep"))
+    gen = TabularGenerator.load(base, device="cpu")
+    assert gen.artifacts.config.max_depth == 9
+    G, y = gen.generate(120, seed=3)
+    _, y_j = JS.sample(flow_deep, 120, seed=3)
+    assert G.shape == (120, 2) and np.isfinite(G).all()
+    np.testing.assert_array_equal(np.sort(y), np.sort(y_j))
+    X, lab = moons
+    Xm = X[:20].copy()
+    Xm[::2, 0] = np.nan
+    filled = gen.impute(Xm, lab[:20], seed=1)
+    observed = ~np.isnan(Xm)
+    assert np.isfinite(filled).all()
+    np.testing.assert_array_equal(filled[observed], Xm[observed])
+
+
+def _same_seed_twice(device, art, moons):
+    """generate, impute and fit, each twice with one seed on ``device``:
+    identical results; another seed gives other rows."""
+    gen = TabularGenerator(art.config)
+    gen.artifacts = art.to(device)
+    G1, y1 = gen.generate(150, seed=5)
+    G2, y2 = gen.generate(150, seed=5)
+    np.testing.assert_array_equal(G1, G2)
+    np.testing.assert_array_equal(y1, y2)
+    assert not np.array_equal(G1, gen.generate(150, seed=6)[0])
+    X, lab = moons
+    Xm = X[:30].copy()
+    Xm[1::2, 1] = np.nan
+    np.testing.assert_array_equal(gen.impute(Xm, lab[:30], seed=2),
+                                  gen.impute(Xm, lab[:30], seed=2))
+    cfg = TForestConfig(n_t=2, duplicate_k=3, n_trees=3, max_depth=2,
+                        n_bins=16)
+    a = TabularGenerator(cfg).fit(X, lab, seed=4, device=device).artifacts
+    b = TabularGenerator(cfg).fit(X, lab, seed=4, device=device).artifacts
+    for f in ("feat", "thr_val", "leaf", "mins", "maxs"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_one_seed_gives_identical_rows_twice_on_the_cpu(flow_so, moons):
+    _same_seed_twice("cpu", to_port(flow_so), moons)
+
+
+@pytest.mark.cuda
+def test_one_seed_gives_identical_rows_twice_on_the_card(flow_so, moons):
+    """The card draws its own noise (Philox), not the CPU's, for one seed;
+    on one device type a seed is reproducible."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: python3 chip_smoke.py runs the "
+                    "port on the card")
+    _same_seed_twice("cuda", to_port(flow_so), moons)

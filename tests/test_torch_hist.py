@@ -14,7 +14,8 @@ import torch
 from repro.kernels.hist.hist_kernel import histogram_pallas
 from repro.kernels.hist.ref import histogram_ref as jax_histogram_ref
 from repro_torch.forest.hist import build_histogram
-from repro_torch.kernels.hist.ops import (CHUNK, MAX_SMEM, blocks, histogram,
+from repro_torch.kernels.hist.ops import (CHUNK, MAX_SMEM, blocks,
+                                          check_bins, histogram, max_bins,
                                           narrow_codes, node_layout,
                                           node_order, plan)
 from repro_torch.kernels.hist.ref import histogram_ref
@@ -285,6 +286,71 @@ def test_plan_refuses_bins_that_do_not_fit():
         plan(10, 10, 300)                        # past one-byte codes
 
 
+@pytest.mark.parametrize("code_type", ["int16", "int32"])
+def test_plain_version_drops_codes_outside_the_bins(code_type):
+    """A code of -1, n_bins or 255 adds its row to no cell of its feature,
+    as in the kernel; every other (row, feature) adds as before, in row
+    order (a loop of float32 adds here)."""
+    n, p, out, lanes, n_nodes, n_bins = 40, 3, 2, 2, 2, 16
+    codes, nid, g, w = inputs(n, p, out, n_nodes, n_bins, seed=3,
+                              lanes=lanes)
+    bad = np.array([-1, n_bins, 255])
+    codes[::3, 0] = bad[np.arange(len(codes[::3, 0])) % 3]
+    codes[1::5, 2] = -1
+    sums, cnt = port(codes, nid, g, w, n_nodes, n_bins, code_type)
+    want = np.zeros((lanes, n_nodes, p, n_bins, out), np.float32)
+    want_c = np.zeros((lanes, n_nodes, p, n_bins), np.float32)
+    for s in range(lanes):
+        for i in range(n):
+            for j in range(p):
+                b = codes[i, j]
+                if 0 <= b < n_bins:
+                    k = nid[s, i]
+                    want[s, k, j, b] += g[s, i] * w[i]
+                    want_c[s, k, j, b] += w[i]
+    np.testing.assert_array_equal(sums, want)
+    np.testing.assert_array_equal(cnt, want_c)
+    # feature 1 has no code out of range: the JAX reference's bits
+    ref_sums, ref_cnt = jax_lane(codes, nid, g, w, n_nodes, n_bins, s=1)
+    np.testing.assert_array_equal(sums[1, :, 1], ref_sums[:, 1])
+    np.testing.assert_array_equal(cnt[1, :, 1], ref_cnt[:, 1])
+
+
+@pytest.mark.parametrize("p,out", [(368, 368), (368, 1), (5, 5), (533, 533)])
+def test_card_fit_bins_check(p, out):
+    """The check a card fit runs before any device work: the kernel's most
+    bins at that width (255, one-byte codes), and n_bins past it refused
+    with a message naming both."""
+    assert max_bins(p, out) == 255
+    check_bins(p, out, 255)
+    with pytest.raises(ValueError, match=r"n_bins=256: .* at most 255 bins"):
+        check_bins(p, out, 256)
+
+
+@pytest.mark.parametrize("multi_output", [False, True])
+def test_card_fit_refuses_bins_before_any_device_work(monkeypatch,
+                                                      multi_output):
+    """fit_artifacts on a CUDA device checks n_bins against the hist kernel
+    before it bins the data or touches the device; the CPU path takes 256
+    bins (XGBoost's default)."""
+    from repro_torch.config import ForestConfig
+    from repro_torch.tabgen import fitting
+    X = np.random.default_rng(0).normal(size=(50, 3)).astype(np.float32)
+    cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
+                       n_bins=256, multi_output=multi_output)
+
+    def no_device_work(*a, **k):
+        raise AssertionError("data prepared before the bins check")
+    monkeypatch.setattr(fitting, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    monkeypatch.setattr(fitting, "prepare_classes", no_device_work)
+    with pytest.raises(ValueError, match="n_bins=256"):
+        fitting.fit_artifacts(X, None, cfg, device="cuda")
+    monkeypatch.undo()
+    art = fitting.fit_artifacts(X, None, cfg, device="cpu")
+    assert torch.isfinite(art.leaf).all()
+
+
 def test_plan_at_photons_width():
     """MO: two blocks of 6 warps × 2 features share an SM; a level of one
     node takes 12 warps × 1 feature (more blocks for its last wave); SO:
@@ -384,6 +450,19 @@ def test_cuda_kernel_equals_plain_cpu_version(cuda_device, n, p, out, lanes,
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b)
         assert torch.equal(a.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_cuda_fit_refuses_256_bins_before_any_launch(cuda_device):
+    from repro_torch.config import ForestConfig
+    from repro_torch.tabgen import fit_artifacts
+    X = np.random.default_rng(0).normal(size=(50, 3)).astype(np.float32)
+    cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
+                       n_bins=256)
+    before = histogram.launches
+    with pytest.raises(ValueError, match="n_bins=256"):
+        fit_artifacts(X, None, cfg, device=cuda_device)
+    assert histogram.launches == before
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@
 ``repro_torch.forest.packed.predict_forest`` on the CPU (the plain PyTorch
 version) are held against ``repro``'s XLA reference scan and its Pallas
 kernel in interpret mode, on forests trained by the JAX package and on random
-forests with +inf sentinels and threshold ties. The CUDA kernel itself runs
-only on a GPU: its test here skips unless one is present.
+forests with +inf sentinels and threshold ties, at any depth and tree count.
+The CUDA kernels themselves run only on a GPU: their tests here skip unless
+one is present.
 """
 import dataclasses
 
@@ -131,6 +132,32 @@ def test_forest_predict_matches_jax_ref_per_forest(B, S, out, n):
             np.testing.assert_array_equal(got[b, s].numpy(), ref)
 
 
+@pytest.mark.parametrize("B,S,out", [(3, 1, 5), (2, 4, 1)])   # MO-like, SO-like
+@pytest.mark.parametrize("depth,T", [(9, 3), (10, 2), (2, 400)])
+def test_deep_and_many_tree_forests_match_jax_ref(depth, T, B, S, out):
+    """Past the old kernel's limits (depth 8, 384 trees): the CPU path takes
+    any depth and any number of trees and equals the JAX reference to the
+    bit, through forest_predict and predict_forest."""
+    n, p = 37, 6
+    x, feat, thr, leaf = random_forest(np.random.default_rng(depth * T), B, S,
+                                       T, depth, p, out, n)
+    got = forest_predict(torch.from_numpy(x), torch.from_numpy(feat),
+                         torch.from_numpy(thr), torch.from_numpy(leaf), depth)
+    forest = PackedForest(torch.from_numpy(feat), torch.from_numpy(thr),
+                          torch.from_numpy(leaf), out > 1)
+    packed = predict_forest(torch.from_numpy(x), forest, depth)
+    for b in range(B):
+        per_output = []
+        for s in range(S):
+            ref = np.asarray(j_ref(jnp.asarray(x[b]), jnp.asarray(feat[b, s]),
+                                   jnp.asarray(thr[b, s]),
+                                   jnp.asarray(leaf[b, s]), depth))
+            np.testing.assert_array_equal(got[b, s].numpy(), ref)
+            per_output.append(ref)
+        np.testing.assert_array_equal(packed[b].numpy(),
+                                      np.concatenate(per_output, axis=1))
+
+
 def test_inf_threshold_never_goes_right():
     """+inf is a sentinel: even an +inf feature value stays left (strict >),
     and nothing is clipped (the Pallas kernel clips to 1e30)."""
@@ -193,16 +220,42 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (B, S, T, depth, p, out, n): depth 1, 7, 9 (leaves through L1) and 16
+# (uint16 indices); 1, 20, 400 and 512 trees (400 at n = 8,000 takes two
+# chunks of the leaf-index scratch); MO and SO; odd n; up to 15 classes
+CUDA_CASES = [(3, 1, 5, 7, 37, 37, n) for n in (1, 97, 130, 8000)]
+CUDA_CASES += [(2, 37, 5, 7, 37, 1, n) for n in (1, 97, 130, 8000)]
+CUDA_CASES += [(3, 1, 4, 1, 37, 37, 97), (3, 37, 4, 1, 37, 1, 97),
+               (15, 1, 20, 7, 368, 368, 130), (15, 368, 20, 7, 368, 1, 130),
+               (2, 1, 3, 9, 37, 37, 130), (2, 5, 3, 9, 37, 1, 130),
+               (2, 1, 2, 16, 11, 5, 97), (2, 3, 2, 16, 11, 1, 97),
+               (15, 1, 400, 2, 37, 37, 8000), (2, 5, 400, 3, 37, 1, 130),
+               (3, 1, 512, 3, 37, 37, 130), (3, 1, 1, 7, 37, 2, 97),
+               (2, 3, 20, 4, 9, 6, 130)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 97, 130, 1000])
-@pytest.mark.parametrize("B,S,out", [(3, 1, 37), (2, 37, 1)])
-def test_cuda_kernel_matches_plain(cuda_device, B, S, out, n):
-    depth, T, p = 7, 5, 37
-    arrays = random_forest(np.random.default_rng(n), B, S, T, depth, p, out, n)
+@pytest.mark.parametrize("B,S,T,depth,p,out,n", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, B, S, T, depth, p, out, n):
+    arrays = random_forest(np.random.default_rng(n + T + depth), B, S, T,
+                           depth, p, out, n)
     args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     before = forest_predict.launches
     got = forest_predict(*args, depth)
     assert forest_predict.launches == before + 1
     ref = forest_predict_ref(*args, depth)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    # the same trees in the same order, in fp32: equal to the bit
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_depth_past_its_indices(cuda_device):
+    """depth 17 needs 17-bit leaf indices: the card raises, naming the
+    limit; the CPU path takes it."""
+    arrays = random_forest(np.random.default_rng(0), 1, 1, 1, 17, 3, 1, 5)
+    with pytest.raises(ValueError, match="depth <= 16"):
+        forest_predict(*[torch.from_numpy(a).to(cuda_device)
+                         for a in arrays], 17)
+    assert forest_predict(*[torch.from_numpy(a) for a in arrays],
+                          17).shape == (1, 1, 5, 1)
