@@ -23,7 +23,8 @@
    and 6, SO with 368 lanes at level 6), whose float atomics add in another
    order; two launches on the same inputs must give the same bits. Times
    kernel and plain version at MO levels 0 and 6, SO level 6 and MO level
-   6 with int8 codes.
+   6 with int8 codes and at 256 bins (two bin windows a launch; 256 and
+   300 bins are among the bit-equal cases).
 5. Holds ``flash_attention`` against its plain version on the card (fp32
    within 2e-5, rtol = atol as tests/test_kernels.py; bf16 within atol
    1e-3 plus rtol 1e-2, about an ulp),
@@ -49,7 +50,16 @@
    ensembles of 160,000 rows) and SO on n_t=2 x 1 class (368 lanes). Checks
    the ``hist`` launch count, that a resume from the checkpoint launches
    nothing, and generates 1,000 rows from the trained MO model.
-8. Serves smollm-135m at its full width (30 layers, d_model 576, 9/3
+8. Drives the out-of-core sharded training path at the same width (MO,
+   n_t=2 x 2 classes of 8,000 rows: 4 ensembles of 320,000 weight-masked
+   rows): ``ingest`` into a store of 4,096-row shards, a store fit under a
+   one-rank NCCL group on a 1x1 ``DeviceMesh`` (pipelined, checkpointed;
+   hist launch count checked), a resume that launches nothing, the same
+   rows in memory (serial) and the store without a process group, all bit-
+   equal; generates 1,000 rows from the store model; runs the ingest and
+   training CLIs on a small store against the API fit. Logs rows/s of the
+   ingest and seconds per ensemble of each fit.
+9. Serves smollm-135m at its full width (30 layers, d_model 576, 9/3
    heads, vocab 49,152; random weights from a seed, built on the device)
    through ``serve_batch``: 8 prompts of 2,048 tokens, 64 new tokens, fp32.
    Checks the tokens, 30 kernel launches (one per prefill layer) and none
@@ -57,10 +67,10 @@
    of device time. Then bf16, the prefill entry point's default: 30
    launches per prefill and none in two decode steps; one prefill timed
    (seconds, tokens/s) and one profiled for the kernel's share.
-9. Checks every path against the plain PyTorch path on the CPU at a small
+10. Checks every path against the plain PyTorch path on the CPU at a small
    size (a solve, a save -> load round trip, and logs whether one seed
    gives the card and the CPU different rows, a two-moons fit with the same
-   noise, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
+   noise, on one device and on the sharded route's one rank, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
    that a warm-start extension on the card equals a cold fit bit for bit.
 
 Exits non-zero on any failure and when no CUDA device is present. The line
@@ -451,10 +461,11 @@ def hist_expected(codes, nid, g, w, n_nodes, n_bins):
     [0, n_bins) adding its row to no cell of that feature (the kernel's
     spare bin, never written out)."""
     from repro_torch.kernels.hist.ref import histogram_ref
-    inside = (codes >= 0) & (codes < n_bins)
+    wide = codes.to(torch.int32)             # n_bins may pass int8's range
+    inside = (wide >= 0) & (wide < n_bins)
     if bool(inside.all()):
         return histogram_ref(codes, nid, g, w, n_nodes, n_bins)
-    spare = torch.where(inside, codes.to(torch.int32), n_bins)
+    spare = torch.where(inside, wide, n_bins)
     sums, cnt = histogram_ref(spare, nid, g, w, n_nodes, n_bins + 1)
     return (sums[:, :, :, :n_bins].contiguous(),
             cnt[:, :, :, :n_bins].contiguous())
@@ -490,6 +501,14 @@ def hist_cases():
         ("SO 368 lanes, small n", (130, P, 1, P, 8, N_BINS, i32)),
         ("MO empty nodes", (700, 37, 37, 1, 8, N_BINS, i32), "empty_nodes"),
         ("SO empty nodes", (700, 37, 1, 37, 8, N_BINS, i32), "empty_nodes"),
+        # more bins than a one-byte code: two windows a launch
+        ("MO 256 bins", (2000, 37, 37, 1, 8, 256, i32)),
+        ("SO 256 bins", (2000, 37, 1, 37, 8, 256, i16)),
+        ("MO 300 bins, codes outside", (600, 37, 37, 1, 4, 300, i32),
+         "out_of_range"),
+        ("SO 300 bins, codes outside", (600, 37, 1, 37, 4, 300, i32),
+         "out_of_range"),
+        ("MO 256 bins level 6", (3000, 37, 37, 1, 64, 256, i32)),
     ]
     full = [("MO level 0", (FIT_ROWS, P, P, 1, 1, N_BINS, i32)),
             ("MO level 6", (FIT_ROWS, P, P, 1, 64, N_BINS, i32)),
@@ -673,6 +692,141 @@ def drive_training(device, ckpt_root):
     return launches
 
 
+SCALE_CLASSES = (3, 10)        # 2 of photons' 15 energy classes
+SCALE_SHARD_ROWS = 4096
+
+
+def same_model(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in (
+        "feat", "thr_val", "leaf", "best_round", "rounds_run", "val_curve",
+        "mins", "maxs"))
+
+
+def drive_scaleout(device, tmp):
+    """The out-of-core sharded training path at photons width: ingest a
+    store, fit from it under a one-rank NCCL group (pipelined, with a
+    checkpoint), resume, hold it against the same rows in memory (serial)
+    and against the group-free store route, generate from it, and run the
+    ingest and training CLIs. Returns the hist launches of its fits."""
+    import torch.distributed as dist
+    from repro_torch.data.store import DatasetStore, ingest
+    from repro_torch.kernels.hist.ops import histogram
+    from repro_torch.kernels.tree_predict.ops import forest_predict
+    from repro_torch.launch import ingest as ingest_cli
+    from repro_torch.launch import train_forest
+    from repro_torch.launch.mesh import forest_mesh
+    from repro_torch.tabgen import TabularGenerator, fit_artifacts
+    on_card = device.type == "cuda"    # the CPU path launches nothing
+    cfg = photons_config(n_t=2, multi_output=True)
+    X, y = calo_photons(np.repeat(np.array(SCALE_CLASSES), CLASS_ROWS),
+                        seed=2)
+    n_ens = cfg.n_t * len(SCALE_CLASSES)
+    masked = len(X) * cfg.duplicate_k
+    log(f"scale-out cuts: the grid n_t=100 x 15 classes becomes "
+        f"{cfg.n_t} x {len(SCALE_CLASSES)}: {n_ens} ensembles of {masked} "
+        f"masked rows (each trains on every class's rows, weight 0 outside "
+        f"its class); p, duplicate_k, depth, trees and bins are photons'")
+
+    t0 = time.perf_counter()
+    store = ingest(((X[i:i + SCALE_SHARD_ROWS], y[i:i + SCALE_SHARD_ROWS])
+                    for i in range(0, len(X), SCALE_SHARD_ROWS)),
+                   os.path.join(tmp, "store"), shard_rows=SCALE_SHARD_ROWS)
+    dt = time.perf_counter() - t0
+    ingest_rate = store.n_rows / dt
+    log(f"ingest: {store.n_rows} rows x {store.p} in {store.n_shards} shards "
+        f"of {SCALE_SHARD_ROWS}, {dt:.3f} s, {ingest_rate!r} rows/s")
+
+    launches = 0
+    times = {}
+
+    def timed_fit(label, data, labels, **kw):
+        nonlocal launches
+        histogram.launches = 0
+        t0 = time.perf_counter()
+        art = fit_artifacts(data, labels, cfg, device=device, **kw)
+        sync(device)
+        dt = time.perf_counter() - t0
+        got = histogram.launches
+        launches += got
+        times[label] = dt
+        log(f"fit {label}: {n_ens} ensembles of {masked} rows x {P}, "
+            f"{dt:.2f} s, {dt / n_ens:.2f} s per ensemble, {got} hist "
+            f"launches")
+        return art, got
+
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = forest_mesh(1, 1, device)
+        ckpt = os.path.join(tmp, "ckpt")
+        art, got = timed_fit(f"store, 1x1 {backend} mesh, pipelined", store,
+                             None, mesh=mesh, pipeline="auto",
+                             checkpoint_dir=ckpt)
+        expect = expected_hist_launches(art)
+        if on_card and (got != expect or got == 0):
+            raise AssertionError(f"store fit: {got} hist launches, expected "
+                                 f"{expect}")
+        if not torch.isfinite(art.leaf).all():
+            raise AssertionError("store fit: non-finite model")
+        histogram.launches = 0
+        again = fit_artifacts(store, None, cfg, mesh=mesh,
+                              checkpoint_dir=ckpt, resume=True,
+                              device=device)
+        if histogram.launches != 0 or not same_model(art, again):
+            raise AssertionError(f"store resume: {histogram.launches} "
+                                 "launches or another model")
+        log("store resume: 0 hist launches, the same model")
+        mem, _ = timed_fit(f"in memory, 1x1 {backend} mesh, serial", X, y,
+                           mesh=mesh, pipeline=None)
+        if not same_model(art, mem):
+            raise AssertionError("the store fit differs from the in-memory "
+                                 "fit of the same rows")
+        log("store fit (pipelined) == in-memory fit (serial): bit-equal")
+    finally:
+        dist.destroy_process_group()
+    free, _ = timed_fit("store, no process group, serial", store, None,
+                        pipeline=None)
+    if not same_model(art, free):
+        raise AssertionError("the group-free store route differs")
+    log(f"store fit on the {backend} mesh == store fit without a group: "
+        "bit-equal")
+    log(f"pipelined vs serial on the store: "
+        f"{times[f'store, 1x1 {backend} mesh, pipelined']!r} s vs "
+        f"{times['store, no process group, serial']!r} s")
+
+    forest_predict.launches = 0
+    gen = TabularGenerator(cfg)
+    gen.artifacts = art
+    Xg, _ = gen.generate(1000, seed=1)
+    if (Xg.shape != (1000, P) or not np.isfinite(Xg).all()
+            or (on_card and forest_predict.launches != cfg.n_t - 1)):
+        raise AssertionError(f"generate from the store model: {Xg.shape}, "
+                             f"{forest_predict.launches} launches")
+    log(f"generate 1000 rows from the store model: finite, "
+        f"{forest_predict.launches} tree_predict launches (n_t - 1)")
+
+    small = os.path.join(tmp, "small")
+    ingest_cli.main(["--out", small, "--synthetic", "4096x16x2",
+                     "--shard-rows", "1024", "--batch-rows", "500"])
+    flags = ["--n-t", "2", "--duplicate-k", "4", "--n-trees", "5",
+             "--max-depth", "4", "--n-bins", "32", "--multi-output",
+             "--device", device.type]
+    histogram.launches = 0
+    cli = train_forest.main(["--data-dir", small, "--mesh", "none"] + flags)
+    from repro_torch.config import ForestConfig
+    api = fit_artifacts(DatasetStore(small), None, ForestConfig(
+        n_t=2, duplicate_k=4, n_trees=5, max_depth=4, n_bins=32,
+        reg_lambda=1.0, multi_output=True), device=device)
+    launches += histogram.launches
+    if not same_model(cli, api):
+        raise AssertionError("the training CLI's model differs from the "
+                             "API fit of the same store")
+    log("CLIs: ingest -> train_forest --mesh none equals the API fit")
+    return launches, dict(ingest_rows_per_s=ingest_rate, fit_s=times,
+                          ensembles=n_ens, masked_rows=masked)
+
+
 def two_moons(n, seed):
     """Two interleaved half circles with noise (the repo's toy dataset)."""
     rng = np.random.default_rng(seed)
@@ -686,10 +840,10 @@ def two_moons(n, seed):
     return X[perm].astype(np.float32), y[perm]
 
 
-def cpu_noise(eid, split, shape):
+def cpu_noise(eid, split, shape, shard=0):
     """Bridge noise drawn on the host, so fits on two devices see the same
-    numbers."""
-    gen = torch.Generator().manual_seed(1000 * eid + split)
+    numbers (the sharded route passes the data rank too)."""
+    gen = torch.Generator().manual_seed(1000 * eid + 10 * shard + split)
     return torch.randn(shape, generator=gen), None
 
 
@@ -728,6 +882,27 @@ def check_training_small(device):
                                  "fit")
         log(f"extend {'MO' if mo else 'SO'} 5 -> 8 rounds on {device.type}: "
             f"bit-identical to the cold fit of 8 rounds")
+    # the sharded trainer on one rank (a store fit, no process group)
+    from repro_torch.data.store import ingest
+    with tempfile.TemporaryDirectory() as d:
+        store = ingest([(X, y)], os.path.join(d, "store"), shard_rows=100)
+        for mo in (False, True):
+            cfg = ForestConfig(n_t=5, duplicate_k=6, n_trees=8, max_depth=3,
+                               n_bins=16, reg_lambda=1.0, multi_output=mo)
+            a = fit_artifacts(store, None, cfg, device=device,
+                              noise=cpu_noise)
+            b = fit_artifacts(store, None, cfg, device="cpu",
+                              noise=cpu_noise)
+            same = all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                       for f in ("feat", "best_round", "rounds_run"))
+            err = max((getattr(a, f).cpu() - getattr(b, f)).abs().max()
+                      .item() for f in ("leaf", "thr_val"))
+            log(f"sharded one-rank fit {'MO' if mo else 'SO'} two-moons on "
+                f"{device.type} vs plain on cpu: structure equal {same}, "
+                f"leaves and thresholds max abs diff {err!r}")
+            if not same or err > SMALL_TOL:
+                raise AssertionError("sharded training: device and plain "
+                                     "path disagree")
 
 
 # ---------------------------------------------------------------------------
@@ -1080,8 +1255,10 @@ def main() -> int:
     mo6 = full[1][1]
     hist_timing = {}
     for key, (label, shape) in zip(
-            ("level0", "level6", "so_level6", "level6_int8"),
-            full + [("MO level 6, int8 codes", mo6[:6] + (torch.int8,))]):
+            ("level0", "level6", "so_level6", "level6_int8", "level6_256"),
+            full + [("MO level 6, int8 codes", mo6[:6] + (torch.int8,)),
+                    ("MO level 6, 256 bins (two windows)",
+                     mo6[:5] + (256, torch.int32))]):
         ht = time_hist(device, shape)
         hist_timing[key] = ht
         log(f"hist at {label} full width: kernel {ht['ms']!r} ms, "
@@ -1112,6 +1289,13 @@ def main() -> int:
         hist_launches = drive_training(device, ckpt_root)
     torch.cuda.empty_cache()
 
+    # -- the out-of-core sharded training path ------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        scale_launches, scaleout = drive_scaleout(device, tmp)
+    hist_launches += scale_launches
+    torch.cuda.empty_cache()
+
     # -- the LM serving path -----------------------------------------------
     forest_predict.launches = histogram.launches = flash_attention.launches = 0
     fa_launches, serving = drive_serving(device)
@@ -1121,6 +1305,7 @@ def main() -> int:
     check_training_small(device)
     check_serving_small(device)
 
+    log(card)     # again here, where a run's tail shows it beside the numbers
     ht = hist_timing["level6"]
     kernels = [{
         "name": "tree_predict", "route": "cuda",
@@ -1151,6 +1336,9 @@ def main() -> int:
                       "hist_level0": hist_timing["level0"],
                       "hist_so_level6": hist_timing["so_level6"],
                       "hist_level6_int8": hist_timing["level6_int8"],
+                      "hist_level6_256": hist_timing["level6_256"],
+                      "scaleout": dict(scaleout,
+                                       hist_launches=scale_launches),
                       "flash_attention_bf16": dict(
                           fa_timing[torch.bfloat16],
                           max_abs_err=fa_worst[torch.bfloat16],

@@ -232,10 +232,40 @@ def pr12_launch(lib, name):
     return run
 
 
+class PreWindowLib:
+    """A library built from a ``csrc/`` older than the bin windows (one
+    pass, at most 255 bins), called with the current arguments: ``lo``,
+    ``bin_stride`` and the layout flag are dropped."""
+
+    def __init__(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn, args in (("hist_narrow", [ptr, i32, ptr] + [i32] * 6 + [ptr]),
+                         ("hist_launch_cols",
+                          [ptr, i32] + [ptr] * 8 + [i32] * 12 + [ptr]),
+                         ("hist_launch_feats",
+                          [ptr, i32] + [ptr] * 8 + [i32] * 7 + [ptr])):
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = i32
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def hist_narrow(self, *a):
+        return self.lib.hist_narrow(*a[:9], *a[10:])
+
+    def hist_launch_cols(self, *a):
+        return self.lib.hist_launch_cols(*a[:19], *a[22:])
+
+    def hist_launch_feats(self, *a):
+        return self.lib.hist_launch_feats(*a[:16], *a[19:])
+
+
 def pr15_launch(lib, name):
-    """PR 15's C signature, with the tile of ``name``'s plan variant."""
+    """PR 15's design, with the tile of ``name``'s plan variant."""
     from repro_torch.kernels.hist.ops import declare, launch, plan
-    declare(lib)
+    if not isinstance(lib, PreWindowLib):
+        declare(lib)
 
     def run(codes, node_id, g, w, n_nodes, n_bins):
         kw = plan_kw(name, g.shape[2])
@@ -508,9 +538,13 @@ def hist_fn(path: str, name: str):
     """Build ``name`` (its library at ``path``) as ``histogram(codes,
     node_id, g, w, n_nodes, n_bins)``, through its design's C signature."""
     with open(os.path.join(os.path.dirname(path), "hist.cu")) as f:
-        design = design_for(f.read())
+        text = f.read()
+    design = design_for(text)
     launcher = design["launch"] if design else pr15_launch
-    return launcher(load(path), name)
+    lib = load(path)
+    if launcher is pr15_launch and "bin_stride" not in text:
+        lib = PreWindowLib(lib)
+    return launcher(lib, name)
 
 
 def check(lib_path: str, name: str) -> int:

@@ -1,15 +1,19 @@
 """Quantile binning: raw features -> small integer bin codes.
 
-``fit_bins`` computes per-feature quantile edges; ``transform`` turns raw
+``fit_bins`` computes per-feature quantile edges (``fit_bins_streaming``
+from a streamed sketch, for data that does not fit); ``transform`` turns raw
 features into codes with ``code > b  <=>  x > edges[:, b]`` exactly, the
 contract that lets a tree grown on codes route raw values (its thresholds
 are edge values) and lets a warm start replay saved trees on raw inputs.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.interpolants import _linspace
+from repro_torch.kernels.dispatch import Device, resolve_device
 
 # torch.quantile refuses inputs of more than 2**24 elements
 _QUANTILE_MAX = 2 ** 24
@@ -28,6 +32,31 @@ def fit_bins(x, n_bins: int):
     cols = [torch.quantile(x[:, j:j + step], qs, dim=0)
             for j in range(0, p, step)]
     return torch.cat(cols, dim=1).T.contiguous().to(torch.float32)
+
+
+def fit_bins_streaming(X, n_bins: int, *, max_entries: int = 2048,
+                       row_chunk: int = 65536,
+                       device: Optional[Device] = None):
+    """Out-of-core twin of :func:`fit_bins`: per-feature quantile edges
+    ``[p, n_bins - 1]`` f32 on ``device`` (``None``: the GPU, or raise)
+    without sorting, or even holding, a full column.
+
+    ``X`` is fed in row chunks through a mergeable
+    :class:`repro_torch.data.sketch.QuantileSketch`; a
+    :class:`repro_torch.data.store.DatasetStore` gives the sketch its ingest
+    already built, so the edges cost one manifest read. Exact while the
+    data has at most ``max_entries`` rows (``np.quantile``'s linear
+    interpolation, as the JAX package's ``fit_bins`` computes it);
+    bounded-rank-error approximate beyond that. Equal to the JAX package's
+    ``fit_bins_streaming`` to the bit.
+    """
+    device = resolve_device(device)
+    sketch = getattr(X, "sketch", None)   # DatasetStore: precomputed
+    if sketch is None:
+        from repro_torch.data.sketch import sketch_dataset
+        sketch = sketch_dataset(X, max_entries=max_entries,
+                                row_chunk=row_chunk)
+    return torch.from_numpy(sketch.edges(n_bins, mode="linear")).to(device)
 
 
 def transform(x, edges):

@@ -20,16 +20,23 @@ because :func:`repro_torch.forest.binning.transform` guarantees ``code > b
 leaves, so each lane restarts at its ``best_round + 1`` and grows them
 again, deterministically. A warm-started run to R + K equals a cold run to
 R + K bit for bit.
+
+Sharded training: ``group`` (the data ranks, each with its own rows) is
+passed on to every tree, and the validation loss sums its numerator and
+denominator over it, so every rank sees the same loss and stops the same
+lanes at the same round.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.config import ForestConfig
-from repro_torch.forest.tree import (gather_leaves, grow_tree,
-                                     predict_tree_codes, predict_tree_values)
+from repro_torch.forest.tree import (all_reduce_sum, gather_leaves,
+                                     grow_tree, predict_tree_codes,
+                                     predict_tree_values)
 
 
 class BoostResult(NamedTuple):
@@ -41,23 +48,29 @@ class BoostResult(NamedTuple):
     val_curve: torch.Tensor   # [S, T] f32 (inf for rounds not run)
 
 
-def _wmse(pred, tgt, w):
+def _wmse(pred, tgt, w, group=None):
     """Weighted MSE per lane: pred/tgt ``[S, n, out]``, w ``[n]`` -> ``[S]``.
 
     The numerator is accumulated in float64 and rounded once to float32, so
     a lane's loss does not depend on which other lanes share the batch.
+    Over the data ranks of ``group`` both sums are then added in float32,
+    as the JAX package's ``psum`` adds them.
     """
     num = torch.sum(w[None, :, None] * torch.square(pred - tgt), dim=(1, 2),
                     dtype=torch.float64).to(torch.float32)
-    den = torch.sum(w) * tgt.shape[2]
+    den = (torch.sum(w) * tgt.shape[2]).reshape(1)
+    num = all_reduce_sum(num, group)
+    den = all_reduce_sum(den, group)
     return num / torch.clamp(den, min=1e-12)
 
 
 def fit_boosted(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
                 fcfg: ForestConfig, *, warm=None, x_raw=None,
-                val_raw=None) -> BoostResult:
+                val_raw=None, group: Optional[dist.ProcessGroup] = None
+                ) -> BoostResult:
     """codes/val_codes ``[n, p]`` int, shared by the lanes; tgt/val_tgt
-    ``[S, n, out]``; w/val_w ``[n]`` weights.
+    ``[S, n, out]``; w/val_w ``[n]`` weights. ``group``: the data ranks of
+    a sharded fit (``None``: one device).
 
     ``warm = (feat [S, R, H], thr_val [S, R, H], leaf [S, R, L, out],
     val_curve [S, R], best_round [S])`` continues a previous run (same data,
@@ -126,11 +139,12 @@ def fit_boosted(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
             codes, pred[lanes] - tgt[lanes], w, edges_sentinel, depth=depth,
             n_bins=fcfg.n_bins, reg_lambda=fcfg.reg_lambda,
             min_child_weight=fcfg.min_child_weight,
-            learning_rate=fcfg.learning_rate, hist_bf16=fcfg.hist_bf16)
+            learning_rate=fcfg.learning_rate, hist_bf16=fcfg.hist_bf16,
+            group=group, split_reduce=fcfg.split_reduce)
         pred[lanes] = pred[lanes] + gather_leaves(tree.leaf, node_id)
         vp = vpred[lanes] + predict_tree_codes(val_codes, tree, depth)
         vpred[lanes] = vp
-        vloss = _wmse(vp, val_tgt[lanes], val_w)
+        vloss = _wmse(vp, val_tgt[lanes], val_w, group)
         improved = vloss < best_loss[lanes]
         best_loss[lanes] = torch.minimum(vloss, best_loss[lanes])
         best_r[lanes] = torch.where(improved, rl, best_r[lanes])
@@ -152,7 +166,8 @@ def fit_boosted(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
 
 def fit_ensemble(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
                  fcfg: ForestConfig, *, warm=None, x_raw=None,
-                 val_raw=None) -> BoostResult:
+                 val_raw=None, group: Optional[dist.ProcessGroup] = None
+                 ) -> BoostResult:
     """One (timestep, class) ensemble. tgt/val_tgt ``[n, p]``.
 
     MO: one vector-leaf boosting run, one lane. SO: one scalar-leaf run per
@@ -160,7 +175,8 @@ def fit_ensemble(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
     Returns a :class:`BoostResult` whose lane dimension is the sub-ensemble
     dimension: MO feat ``[1, T, H]``, leaf ``[1, T, L, p]``; SO feat
     ``[p, T, H]``, leaf ``[p, T, L, 1]``. ``warm`` carries the previous
-    result's arrays with that leading dimension.
+    result's arrays with that leading dimension. ``group``: the data ranks
+    of a sharded fit.
     """
     if fcfg.multi_output:
         lanes, val_lanes = tgt[None], val_tgt[None]
@@ -168,4 +184,5 @@ def fit_ensemble(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
         lanes = tgt.T.unsqueeze(-1).contiguous()
         val_lanes = val_tgt.T.unsqueeze(-1).contiguous()
     return fit_boosted(codes, lanes, w, edges_sentinel, val_codes, val_lanes,
-                       val_w, fcfg, warm=warm, x_raw=x_raw, val_raw=val_raw)
+                       val_w, fcfg, warm=warm, x_raw=x_raw, val_raw=val_raw,
+                       group=group)

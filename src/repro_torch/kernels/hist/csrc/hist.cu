@@ -24,6 +24,14 @@
 // CPU version to the bit, and two launches give the same bits. A code
 // outside [0, n_bins) and padding go to a spare bin never written out.
 //
+// Bin windows. A code is one byte in the kernel, and a window's spare bin
+// is one more code, so one pass takes at most kByteBins bins. More bins
+// are split into contiguous windows [lo, lo + n_bins) (ops.bin_windows):
+// one pass each, over the same node layout. A pass narrows a code c to
+// c - lo inside its window and to its spare bin outside, and writes its
+// cells straight into the full output at bin lo, with a row of bin_stride
+// bins. A cell still sums the same rows in the same order.
+//
 // What bounds it on the H100. At CaloForest photons width (n = 160,000,
 // p = out = 368, 64 bins) one level is 21.7 G adds (MO; SO with 368 lanes
 // twice that) and must move 2.7 GB (MO level 6; SO 5.2 GB): 0.32 ms of
@@ -71,6 +79,8 @@ constexpr int kWarp = 32;
 constexpr int kMaxThreads = 768;
 constexpr size_t kMaxSmem = 227 * 1024;    // what one block may use
 constexpr int kBars = 128;                 // bytes for the mbarriers
+constexpr int kByteBins = 255;             // a window's bins: one-byte codes
+                                           // with one code to spare
 // MO: chunks of 32 rows in a ring of up to 4 (the launch picks)
 constexpr int kColsRows = 32, kColsMaxStages = 4;
 // SO: chunks of 16 rows in a ring of 4; a lane owns 4 features
@@ -245,13 +255,13 @@ __global__ void layout_vals_kernel(const int* __restrict__ src,
 }
 
 // MO codes, transposed: codes_t[s][j][i] = the code of row src[s][i],
-// feature j, or n_bins where it lies outside [0, n_bins), and for padding.
-// Tiles of 32 x 32 through shared memory.
+// feature j, less lo, or n_bins where that lies outside [0, n_bins) (the
+// window's bins), and for padding. Tiles of 32 x 32 through shared memory.
 template <typename InT>
 __global__ void layout_codes_kernel(const InT* __restrict__ codes,
                                     const int* __restrict__ src,
                                     uint8_t* __restrict__ codes_t, int L,
-                                    int p, int p_pad, int n_bins) {
+                                    int p, int p_pad, int n_bins, int lo) {
   __shared__ uint8_t t[32][33];
   const int i0 = blockIdx.x * 32, j0 = blockIdx.y * 32;
   const long long s = blockIdx.z;
@@ -261,7 +271,7 @@ __global__ void layout_codes_kernel(const InT* __restrict__ codes,
     const int o = i < L ? __ldg(src + s * L + i) : -1;
     int v = n_bins;
     if (o >= 0 && j < p) {
-      const int c = (int)__ldg(codes + (long long)o * p + j);
+      const int c = (int)__ldg(codes + (long long)o * p + j) - lo;
       if (c >= 0 && c < n_bins) v = c;
     }
     t[r][tx] = (uint8_t)v;
@@ -312,7 +322,7 @@ hist_cols_kernel(const __grid_constant__ CUtensorMap tm_vals,
                  const __grid_constant__ CUtensorMap tm_codes,
                  const int* __restrict__ offsets, float* __restrict__ sum_g,
                  float* __restrict__ count, int p, int out, int n_nodes,
-                 int n_bins, int col_tiles, int S) {
+                 int n_bins, int lo, int bin_stride, int col_tiles, int S) {
   constexpr int R = kColsRows;
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x;
@@ -410,7 +420,8 @@ hist_cols_kernel(const __grid_constant__ CUtensorMap tm_vals,
   }
 
   // each warp writes its own cells out, neighbouring lanes on neighbouring
-  // columns; column `out` is the count
+  // columns; column `out` is the count. The window's bins start at bin lo
+  // of a row of bin_stride bins.
   const int col = c0 + lane;
   if (col > out) return;
 #pragma unroll
@@ -418,7 +429,7 @@ hist_cols_kernel(const __grid_constant__ CUtensorMap tm_vals,
     const int j = j0 + warp * K + q;
     if (j >= p) break;
     const long long cell =
-        (((long long)s * n_nodes + node) * p + j) * n_bins;
+        (((long long)s * n_nodes + node) * p + j) * bin_stride + lo;
     for (int b = 0; b < n_bins; ++b) {
       const float v = lds(cell0[q] + b * bin_step);
       if (col < out)
@@ -455,8 +466,8 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
                   const int* __restrict__ src,
                   const int* __restrict__ offsets,
                   float* __restrict__ sum_g, float* __restrict__ count,
-                  int n, int len, int p, int n_nodes, int n_bins,
-                  int vec_out) {
+                  int n, int len, int p, int n_nodes, int n_bins, int lo,
+                  int bin_stride, int vec_out) {
   constexpr int R = kFeatsRows, S = kFeatsStages;
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x;
@@ -567,15 +578,15 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
   __syncthreads();   // every cell is final
   if (warp == W) return;
 
-  // write out: each lane its features' runs of n_bins cells, 4 at a time
-  // where n_bins allows
+  // write out: each lane its features' runs of n_bins cells, from bin lo
+  // of a row of bin_stride bins, 4 at a time where the bins allow
   const long long sn = (long long)s * n_nodes + node;
   for (int k = 0; k < kFeatsPerLane; ++k) {
     const int j = j0 + (warp * kWarp + lane) * kFeatsPerLane + k;
     if (j >= p) break;
     const uint32_t h =
         smem_addr(hist + ((warp * kFeatsPerLane + k) * L.nb1) * kWarp + lane);
-    const long long cell0 = (sn * p + j) * n_bins;
+    const long long cell0 = (sn * p + j) * bin_stride + lo;
     if (vec_out) {
       for (int b = 0; b < n_bins; b += 4) {
         float2 a[4];
@@ -598,13 +609,15 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
 
 // -- the narrowing pass -------------------------------------------------------
 
-// o[i, t * tile + q] = code (i, t * feats + q) for q < feats, j < p, the
-// code in [0, n_bins); else n_bins, and all of row n (the spare row that
-// padding positions copy). Grid: x over a row's stride, y over rows
+// o[i, t * tile + q] = code (i, t * feats + q) less lo for q < feats,
+// j < p, that in [0, n_bins) (the window's bins); else n_bins, and all of
+// row n (the spare row that padding positions copy). Grid: x over a row's
+// stride, y over rows
 template <typename InT>
 __global__ void narrow_kernel(const InT* __restrict__ in,
                               uint8_t* __restrict__ o, int n, int p,
-                              int feats, int tile, int stride, int n_bins) {
+                              int feats, int tile, int stride, int n_bins,
+                              int lo) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= stride) return;
   const int q = x % tile;
@@ -613,7 +626,7 @@ __global__ void narrow_kernel(const InT* __restrict__ in,
   for (int i = blockIdx.y; i <= n; i += gridDim.y) {
     int v = n_bins;
     if (real && i < n) {
-      const int c = (int)__ldg(in + (long long)i * p + j);
+      const int c = (int)__ldg(in + (long long)i * p + j) - lo;
       if (c >= 0 && c < n_bins) v = c;
     }
     o[(long long)i * stride + x] = (uint8_t)v;
@@ -622,13 +635,13 @@ __global__ void narrow_kernel(const InT* __restrict__ in,
 
 template <typename InT>
 int narrow_from(const void* in, void* o, int n, int p, int feats, int tile,
-                int stride, int n_bins, cudaStream_t st) {
+                int stride, int n_bins, int lo, cudaStream_t st) {
   if (stride == 0) return 0;
   const int threads = 128;
   const dim3 blocks((stride + threads - 1) / threads, n < 8192 ? n + 1 : 8192);
   narrow_kernel<InT><<<blocks, threads, 0, st>>>(
       static_cast<const InT*>(in), static_cast<uint8_t*>(o), n, p, feats,
-      tile, stride, n_bins);
+      tile, stride, n_bins, lo);
   return (int)cudaGetLastError();
 }
 
@@ -688,21 +701,24 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
 extern "C" {
 
 // Writes codes [n, p] (code_bytes 1, 2 or 4, signed) as u8 [n + 1, stride]
-// in tiles: feature t * feats + q at column t * tile + q; each code, or
-// n_bins (< 256) where it lies outside [0, n_bins), in the padding and in
-// all of row n. Returns a cudaError_t as an int.
+// in tiles: feature t * feats + q at column t * tile + q; each code less
+// lo, or n_bins (the window's spare bin) where that lies outside [0,
+// n_bins), in the padding and in all of row n. Returns a cudaError_t as an
+// int.
 int hist_narrow(const void* codes, int code_bytes, void* out, int n, int p,
-                int feats, int tile, int stride, int n_bins, void* stream) {
+                int feats, int tile, int stride, int n_bins, int lo,
+                void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (feats < 1 || tile < feats || n_bins > 255)
+  if (feats < 1 || tile < feats || n_bins < 1 || n_bins > kByteBins ||
+      lo < 0)
     return (int)cudaErrorInvalidValue;
   switch (code_bytes) {
     case 1: return narrow_from<int8_t>(codes, out, n, p, feats, tile, stride,
-                                       n_bins, st);
+                                       n_bins, lo, st);
     case 2: return narrow_from<int16_t>(codes, out, n, p, feats, tile,
-                                        stride, n_bins, st);
+                                        stride, n_bins, lo, st);
     case 4: return narrow_from<int32_t>(codes, out, n, p, feats, tile,
-                                        stride, n_bins, st);
+                                        stride, n_bins, lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -712,44 +728,49 @@ int hist_narrow(const void* codes, int code_bytes, void* out, int n, int p,
 // padding, and `offsets` [S, n_nodes + 1] each node's positions (from a
 // multiple of 32, in whole chunks of 32; ops.node_layout). Writes vals
 // [S, L, out_pad] f32 (g·w, then w, then 0) and codes_t [S, p_pad, L] u8
-// (the codes transposed), then launches blocks of `warps` warps of `per`
-// (1 or 2) features each, with a ring of `stages` (2-4) chunks.
-// Returns a cudaError_t as an int.
+// (the codes of the window [lo, lo + n_bins), transposed), then launches
+// blocks of `warps` warps of `per` (1 or 2) features each, with a ring of
+// `stages` (2-4) chunks, writing bins lo ... of sum_g and count, whose
+// rows hold bin_stride bins. `layout_vals` 0 keeps vals as an earlier
+// window's pass wrote them. Returns a cudaError_t as an int.
 int hist_launch_cols(const void* codes, int code_bytes, const int* src,
                      const int* offsets, const float* g, const float* w,
                      float* vals, uint8_t* codes_t, float* sum_g,
                      float* count, int S, int n, int L, int p, int p_pad,
-                     int out, int out_pad, int n_nodes, int n_bins,
-                     int warps, int per, int stages, void* stream) {
+                     int out, int out_pad, int n_nodes, int n_bins, int lo,
+                     int bin_stride, int layout_vals, int warps, int per,
+                     int stages, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int feats = warps * per;
   const ColsLayout Lay(n_bins, feats, stages);
   const int tiles = (p + feats - 1) / feats;
-  if (warps < 1 || warps * kWarp > kMaxThreads || n_bins > 255 ||
+  if (warps < 1 || warps * kWarp > kMaxThreads || n_bins < 1 ||
+      n_bins > kByteBins || lo < 0 || lo + n_bins > bin_stride ||
       (per != 1 && per != 2) || feats > 256 || stages < 2 ||
       stages > kColsMaxStages || L % kColsRows || out_pad % 4 ||
       out_pad <= out || p_pad < tiles * feats || Lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   if (L > 0) {
-    layout_vals_kernel<<<dim3((L + 7) / 8, S), 256, 0, st>>>(
-        src, g, w, vals, n, L, out, out_pad);
+    if (layout_vals)
+      layout_vals_kernel<<<dim3((L + 7) / 8, S), 256, 0, st>>>(
+          src, g, w, vals, n, L, out, out_pad);
     const dim3 grid((L + 31) / 32, (p_pad + 31) / 32, S);
     const dim3 block(32, 8);
     switch (code_bytes) {
       case 1:
         layout_codes_kernel<int8_t><<<grid, block, 0, st>>>(
             static_cast<const int8_t*>(codes), src, codes_t, L, p, p_pad,
-            n_bins);
+            n_bins, lo);
         break;
       case 2:
         layout_codes_kernel<int16_t><<<grid, block, 0, st>>>(
             static_cast<const int16_t*>(codes), src, codes_t, L, p, p_pad,
-            n_bins);
+            n_bins, lo);
         break;
       case 4:
         layout_codes_kernel<int32_t><<<grid, block, 0, st>>>(
             static_cast<const int32_t*>(codes), src, codes_t, L, p, p_pad,
-            n_bins);
+            n_bins, lo);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -777,24 +798,29 @@ int hist_launch_cols(const void* codes, int code_bytes, const int* src,
   const int col_tiles = (out + 1 + kWarp - 1) / kWarp;
   kernel<<<dim3(tiles * col_tiles, n_nodes, S), warps * kWarp, Lay.bytes(),
            st>>>(tm_vals, tm_codes, offsets, sum_g, count, p, out, n_nodes,
-                 n_bins, col_tiles, stages);
+                 n_bins, lo, bin_stride, col_tiles, stages);
   return (int)cudaGetLastError();
 }
 
 // SO (out = 1): the layout pass of g and w and the kernel, over the same
 // node-ordered layout (`src`, `offsets`). Writes gs, ws [S, L] f32 (g and
-// w, 0 for padding), then launches `warps` adding warps and one copying
-// warp a block over them and the codes from hist_narrow (n + 1 rows of
-// code_stride, row n all spare). Returns a cudaError_t as an int.
+// w, 0 for padding; `layout_rows` 0 keeps them as an earlier window's pass
+// wrote them), then launches `warps` adding warps and one copying warp a
+// block over them and the codes of the window [lo, lo + n_bins) from
+// hist_narrow (n + 1 rows of code_stride, row n all spare), writing bins
+// lo ... of sum_g and count, whose rows hold bin_stride bins. Returns a
+// cudaError_t as an int.
 int hist_launch_feats(const void* codes, int code_stride, const int* src,
                       const int* offsets, const float* g, const float* w,
                       float* gs, float* ws, float* sum_g, float* count, int S,
-                      int n, int L, int p, int n_nodes, int n_bins, int warps,
+                      int n, int L, int p, int n_nodes, int n_bins, int lo,
+                      int bin_stride, int layout_rows, int warps,
                       void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const FeatsLayout Lay(n_bins, warps);
   const int tiles = (p + Lay.row_bytes - 1) / Lay.row_bytes;
-  if (warps < 1 || (warps + 1) * kWarp > kMaxThreads || n_bins > 255 ||
+  if (warps < 1 || (warps + 1) * kWarp > kMaxThreads || n_bins < 1 ||
+      n_bins > kByteBins || lo < 0 || lo + n_bins > bin_stride ||
       L % kColsRows || code_stride % 16 ||
       code_stride < tiles * Lay.row_bytes || Lay.bytes() > kMaxSmem)
     return (int)cudaErrorInvalidValue;
@@ -803,8 +829,9 @@ int hist_launch_feats(const void* codes, int code_stride, const int* src,
   const cuuint64_t strides[1] = {(cuuint64_t)L * 4};
   const cuuint32_t box[2] = {kFeatsRows, 1};
   if (L > 0) {
-    layout_rows_kernel<<<dim3((L + 255) / 256, S), 256, 0, st>>>(
-        src, g, w, gs, ws, n, L);
+    if (layout_rows)
+      layout_rows_kernel<<<dim3((L + 255) / 256, S), 256, 0, st>>>(
+          src, g, w, gs, ws, n, L);
     if (!make_map(&tm_g, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, gs, dims,
                   strides, box) ||
         !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims,
@@ -813,12 +840,14 @@ int hist_launch_feats(const void* codes, int code_stride, const int* src,
   }
   int err = set_smem(hist_feats_kernel, Lay.bytes());
   if (err) return err;
-  const int vec_out = n_bins % 4 == 0 && ((uintptr_t)sum_g % 16) == 0 &&
+  const int vec_out = n_bins % 4 == 0 && lo % 4 == 0 &&
+                      bin_stride % 4 == 0 && ((uintptr_t)sum_g % 16) == 0 &&
                       ((uintptr_t)count % 16) == 0;
   hist_feats_kernel<<<dim3(tiles, n_nodes, S), (warps + 1) * kWarp,
                       Lay.bytes(), st>>>(
       tm_g, tm_w, static_cast<const uint8_t*>(codes), code_stride, src,
-      offsets, sum_g, count, n, L, p, n_nodes, n_bins, vec_out);
+      offsets, sum_g, count, n, L, p, n_nodes, n_bins, lo, bin_stride,
+      vec_out);
   return (int)cudaGetLastError();
 }
 

@@ -12,8 +12,11 @@ Before the launch the wrapper lays each lane's rows out by node
 node from a multiple of 32 positions) and picks the kernel's tile
 (:func:`plan`); a block of the kernel then walks the positions of one node
 only. The kernel's layout passes write the rows' values and one-byte codes
-in that order (SO narrows the codes as :func:`narrow_codes` does). The
-plain functions are held by the CPU tests.
+in that order (SO narrows the codes as :func:`narrow_codes` does). A code
+is one byte in the kernel, so more than ``BYTE_BINS`` bins are split into
+contiguous windows (:func:`bin_windows`): one pass of the kernel each, over
+the same node layout, each writing its bins straight into the full output.
+The plain functions are held by the CPU tests.
 """
 from __future__ import annotations
 
@@ -41,6 +44,9 @@ FEATS_WARPS = 3
 COLS_ROWS = 32
 SM_SMEM = 228 * 1024       # an SM's shared memory, 1 KB of it kept a block
 FEATS_ROWS, FEATS_STAGES, FEATS_PER_WARP = 16, 4, 128
+# one pass's bins: its codes are one byte, with one code left for the
+# window's spare bin (csrc/hist.cu's kByteBins)
+BYTE_BINS = 255
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,9 +100,12 @@ def plan(p: int, out: int, n_bins: int, n_nodes: int = 2,
     one node), with as many warps as shared memory holds, up to 12
     features a block (MO) or ``FEATS_WARPS`` (SO) and to what the p
     features fill. ``kind``, ``warps`` and ``per`` override the choice (the
-    probe compares them)."""
-    if n_bins > 255:
-        raise ValueError(f"n_bins={n_bins}: at most 255 (one-byte codes)")
+    probe compares them). ``n_bins`` is the bins of one pass, at most
+    ``BYTE_BINS`` (:func:`bin_windows` splits more)."""
+    if not 1 <= n_bins <= BYTE_BINS:
+        raise ValueError(f"n_bins={n_bins}: one pass of the kernel takes 1 "
+                         f"to {BYTE_BINS} bins (one-byte codes); "
+                         "bin_windows splits more")
     kinds = (kind,) if kind else (
         ("features", "columns") if out == 1 else ("columns",))
     for k in kinds:
@@ -131,33 +140,22 @@ def plan(p: int, out: int, n_bins: int, n_nodes: int = 2,
                      f"{MAX_SMEM} bytes of shared memory of a block")
 
 
-def max_bins(p: int, out: int) -> int:
-    """The most bins the kernel takes for p features and out columns, at a
-    level of one node and of several (0 if none fits)."""
-    def fits(n_bins: int) -> bool:
+def bin_windows(p: int, out: int, n_bins: int, n_nodes: int):
+    """The kernel's passes for ``n_bins`` bins: contiguous, near-equal
+    windows ``[(b0, b1), ...]`` that cover ``[0, n_bins)`` in order, as few
+    as :func:`plan` takes for p features, out columns and n_nodes nodes
+    (one window up to ``BYTE_BINS`` bins; 256 bins are two of 128)."""
+    if n_bins < 1:
+        raise ValueError(f"n_bins={n_bins}: must be >= 1")
+    for k in range(-(-n_bins // BYTE_BINS), n_bins + 1):
         try:
-            for n_nodes in (1, 2):
-                plan(p, out, n_bins, n_nodes)
+            plan(p, out, -(-n_bins // k), n_nodes)
         except ValueError:
-            return False
-        return True
-    lo, hi = 0, 255                 # plan is monotone in n_bins
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
-    return lo
-
-
-def check_bins(p: int, out: int, n_bins: int) -> None:
-    """Raise ``ValueError`` unless the kernel takes ``n_bins`` bins for p
-    features and out columns (SO: out = 1). A card fit calls this before
-    any device work."""
-    most = max_bins(p, out)
-    if n_bins > most:
-        raise ValueError(
-            f"n_bins={n_bins}: the CUDA hist kernel takes at most {most} bins "
-            f"at p={p} (out={out}); use n_bins <= {most} on the card, or fit "
-            f"on the CPU (device='cpu'), which takes any n_bins")
+            continue
+        cuts = [i * n_bins // k for i in range(k + 1)]
+        return list(zip(cuts[:-1], cuts[1:]))
+    raise ValueError(f"p={p}, out={out}: no window of the kernel fits the "
+                     f"{MAX_SMEM} bytes of shared memory of a block")
 
 
 def blocks(pl: Plan, S: int, p: int, out: int, n_nodes: int):
@@ -174,15 +172,17 @@ def blocks(pl: Plan, S: int, p: int, out: int, n_nodes: int):
                        min(c0 + pl.width, out + 1))
 
 
-def narrow_codes(codes, n_bins: int, pl: Plan):
-    """Plain version of the kernel's narrowing pass (``hist_narrow``, SO):
-    codes ``[n, p]`` -> ``[n + 1, pl.code_stride]`` uint8, feature ``t ·
-    feats + q`` at column ``t · tile + q``: each code, or n_bins where it
-    lies outside [0, n_bins), in the padding and in all of row n (the row
-    that padding positions of the node layout read)."""
+def narrow_codes(codes, n_bins: int, pl: Plan, lo: int = 0):
+    """Plain version of the kernel's narrowing pass (``hist_narrow``, SO)
+    for the window ``[lo, lo + n_bins)``: codes ``[n, p]`` -> ``[n + 1,
+    pl.code_stride]`` uint8, feature ``t · feats + q`` at column ``t · tile
+    + q``: each code less lo, or n_bins where that lies outside [0, n_bins),
+    in the padding and in all of row n (the row that padding positions of
+    the node layout read)."""
     n, p = codes.shape
-    inside = (codes >= 0) & (codes < n_bins)
-    body = torch.where(inside, codes.to(torch.int32), n_bins)
+    shifted = codes.to(torch.int32) - lo
+    inside = (shifted >= 0) & (shifted < n_bins)
+    body = torch.where(inside, shifted, n_bins)
     full = torch.full((n + 1, pl.feature_tiles, pl.tile), n_bins,
                       dtype=torch.int32, device=codes.device)
     padded = torch.full((n, pl.feature_tiles * pl.feats), n_bins,
@@ -233,11 +233,11 @@ def _lib() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launch functions' C signatures on a built library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn, args in (("hist_narrow", [ptr, i32, ptr] + [i32] * 6 + [ptr]),
+    for fn, args in (("hist_narrow", [ptr, i32, ptr] + [i32] * 7 + [ptr]),
                      ("hist_launch_cols",
-                      [ptr, i32] + [ptr] * 8 + [i32] * 12 + [ptr]),
+                      [ptr, i32] + [ptr] * 8 + [i32] * 15 + [ptr]),
                      ("hist_launch_feats",
-                      [ptr, i32] + [ptr] * 8 + [i32] * 7 + [ptr])):
+                      [ptr, i32] + [ptr] * 8 + [i32] * 10 + [ptr])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i32
     return lib
@@ -315,12 +315,13 @@ histogram.launches = 0
 def launch(lib, codes, node_id, g, w, n_nodes: int, n_bins: int,
            pl: Plan | None = None):
     """The CUDA path of :func:`histogram` through the built library ``lib``
-    (checked CUDA inputs): lays the rows out by node (:func:`node_layout`),
-    allocates the outputs and the kernel's node-ordered copies of its
-    inputs, and launches the kernel on the current stream with the tile
-    ``pl`` (default :func:`plan`'s). Counts nothing: :func:`histogram`
-    does; ``scripts/probe_torch_hist.py`` launches other builds and tiles
-    of the kernel through it."""
+    (checked CUDA inputs): lays the rows out by node (:func:`node_layout`,
+    once), allocates the outputs and the kernel's node-ordered copies of
+    its inputs, and launches the kernel on the current stream once per bin
+    window (:func:`bin_windows`) with the window's tile (:func:`plan`'s, or
+    ``pl``). Counts nothing: :func:`histogram` does;
+    ``scripts/probe_torch_hist.py`` launches other builds and tiles of the
+    kernel through it."""
     from repro_torch.kernels.build import check_launch
     n, p = codes.shape
     S, out = node_id.shape[0], g.shape[2]
@@ -334,39 +335,48 @@ def launch(lib, codes, node_id, g, w, n_nodes: int, n_bins: int,
                         device=dev)
     if n == 0 or p == 0:
         return sum_g.zero_(), count.zero_()
-    pl = pl or plan(p, out, n_bins, n_nodes)
+    windows = bin_windows(p, out, n_bins, n_nodes)
     src, offsets = node_layout(node_id, n_nodes)
     L = src.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
+    values = None      # the rows' values in node order, shared by windows
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if pl.kind == "columns":
-            # the rows in node order: g·w with w as the count column, and
-            # the codes transposed
-            out_pad = _round(out + 1, 4)
-            vals = torch.empty((S, L, out_pad), **f32)
-            codes_t = torch.empty((S, pl.code_stride, L), dtype=torch.uint8,
-                                  device=dev)
-            rc = lib.hist_launch_cols(
-                codes.data_ptr(), codes.element_size(), src.data_ptr(),
-                offsets.data_ptr(), g.data_ptr(), w.data_ptr(),
-                vals.data_ptr(), codes_t.data_ptr(), sum_g.data_ptr(),
-                count.data_ptr(), S, n, L, p, pl.code_stride, out, out_pad,
-                n_nodes, n_bins, pl.warps, pl.per, pl.stages, stream)
-        else:
-            narrow = torch.empty((n + 1, pl.code_stride), dtype=torch.uint8,
-                                 device=dev)
-            rc = lib.hist_narrow(codes.data_ptr(), codes.element_size(),
-                                 narrow.data_ptr(), n, p, pl.feats, pl.tile,
-                                 pl.code_stride, n_bins, stream)
+        for lo, hi in windows:
+            wpl = pl or plan(p, out, hi - lo, n_nodes)
+            first = values is None
+            if wpl.kind == "columns":
+                # the rows in node order: g·w with w as the count column,
+                # and the window's codes transposed
+                out_pad = _round(out + 1, 4)
+                if first:
+                    values = torch.empty((S, L, out_pad), **f32)
+                codes_t = torch.empty((S, wpl.code_stride, L),
+                                      dtype=torch.uint8, device=dev)
+                rc = lib.hist_launch_cols(
+                    codes.data_ptr(), codes.element_size(), src.data_ptr(),
+                    offsets.data_ptr(), g.data_ptr(), w.data_ptr(),
+                    values.data_ptr(), codes_t.data_ptr(), sum_g.data_ptr(),
+                    count.data_ptr(), S, n, L, p, wpl.code_stride, out,
+                    out_pad, n_nodes, hi - lo, lo, n_bins, int(first),
+                    wpl.warps, wpl.per, wpl.stages, stream)
+            else:
+                narrow = torch.empty((n + 1, wpl.code_stride),
+                                     dtype=torch.uint8, device=dev)
+                rc = lib.hist_narrow(codes.data_ptr(), codes.element_size(),
+                                     narrow.data_ptr(), n, p, wpl.feats,
+                                     wpl.tile, wpl.code_stride, hi - lo, lo,
+                                     stream)
+                check_launch("hist", rc)
+                if first:
+                    values = (torch.empty((S, L), **f32),
+                              torch.empty((S, L), **f32))
+                gs, ws = values
+                rc = lib.hist_launch_feats(
+                    narrow.data_ptr(), wpl.code_stride, src.data_ptr(),
+                    offsets.data_ptr(), g.data_ptr(), w.data_ptr(),
+                    gs.data_ptr(), ws.data_ptr(), sum_g.data_ptr(),
+                    count.data_ptr(), S, n, L, p, n_nodes, hi - lo, lo,
+                    n_bins, int(first), wpl.warps, stream)
             check_launch("hist", rc)
-            gs = torch.empty((S, L), **f32)
-            ws = torch.empty((S, L), **f32)
-            rc = lib.hist_launch_feats(
-                narrow.data_ptr(), pl.code_stride, src.data_ptr(),
-                offsets.data_ptr(), g.data_ptr(), w.data_ptr(),
-                gs.data_ptr(), ws.data_ptr(), sum_g.data_ptr(),
-                count.data_ptr(), S, n, L, p, n_nodes, n_bins, pl.warps,
-                stream)
-    check_launch("hist", rc)
     return sum_g, count

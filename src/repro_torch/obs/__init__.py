@@ -1,0 +1,68 @@
+"""repro_torch.obs — metrics, exposition and span tracing for the port.
+
+Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
+
+* :mod:`repro_torch.obs.metrics` — :class:`MetricsRegistry` of typed
+  instruments (Counter / Gauge / fixed-bucket Histogram with labels),
+  all behind one lock so snapshots are consistent cuts.
+* :mod:`repro_torch.obs.export` — Prometheus text exposition
+  (:func:`render_prometheus`), dumped offline by
+  ``repro_torch.launch.metrics``.
+* :mod:`repro_torch.obs.tracing` — ring-buffered :class:`Tracer` spans
+  threaded through the fit pipeline and ``DatasetStore`` ingest, with
+  optional JSONL export and ``torch.profiler`` annotations
+  (``REPRO_OBS_TORCH_TRACE=1``).
+
+The JAX package's resource monitor and profiler captures belong to its
+serving plane, which the port has not reached yet.
+
+Offline single-pipeline processes (``train_forest``, ``ingest``) use the
+process-wide defaults below, which ``repro_torch.launch.metrics`` dumps.
+"""
+from __future__ import annotations
+
+import threading
+
+from repro_torch.obs.export import CONTENT_TYPE, render_prometheus
+from repro_torch.obs.metrics import (
+    DEFAULT_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+)
+from repro_torch.obs.tracing import SlowLog, Span, Tracer
+
+__all__ = [
+    "CONTENT_TYPE",
+    "Counter",
+    "DEFAULT_BUCKETS",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "SlowLog",
+    "Span",
+    "Tracer",
+    "default_registry",
+    "default_tracer",
+    "render_prometheus",
+]
+
+_defaults: dict = {}
+_defaults_lock = threading.Lock()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry used by offline paths (fit, ingest)."""
+    with _defaults_lock:
+        if "registry" not in _defaults:
+            _defaults["registry"] = MetricsRegistry()
+        return _defaults["registry"]
+
+
+def default_tracer() -> Tracer:
+    """The process-wide tracer used by offline paths (fit, ingest)."""
+    with _defaults_lock:
+        if "tracer" not in _defaults:
+            _defaults["tracer"] = Tracer(capacity=4096)
+        return _defaults["tracer"]

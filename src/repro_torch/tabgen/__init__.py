@@ -6,8 +6,9 @@ Layers, bottom-up:
   trained model as tensors on one device, with ``save``/``load`` in the JAX
   package's format and :func:`artifacts_from_numpy`.
 * :mod:`repro_torch.tabgen.fitting`    — :func:`fit_artifacts` and
-  :func:`extend_artifacts`: the single-device trainer, with streaming
-  checkpoints, resume and warm start.
+  :func:`extend_artifacts`: the single-device and the sharded trainer
+  (out-of-core stores, a pipelined batch loop: :class:`PipelineConfig`),
+  with streaming checkpoints, resume and warm start.
 * :mod:`repro_torch.tabgen.samplers`   — the named solver registry
   (``euler``/``heun`` for flow, ``ddim``/``em`` for diffusion).
 * :mod:`repro_torch.tabgen.sampling`   — :func:`sample` and
@@ -21,7 +22,7 @@ from repro_torch.tabgen.artifacts import (  # noqa: F401
     ForestArtifacts, artifacts_from_numpy)
 from repro_torch.tabgen.facade import TabularGenerator  # noqa: F401
 from repro_torch.tabgen.fitting import (  # noqa: F401
-    extend_artifacts, fit_artifacts)
+    PipelineConfig, extend_artifacts, fit_artifacts)
 from repro_torch.tabgen.imputation import impute  # noqa: F401
 from repro_torch.tabgen.samplers import (  # noqa: F401
     default_sampler, get_sampler, list_samplers, register_sampler)

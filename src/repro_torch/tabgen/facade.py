@@ -5,7 +5,8 @@ The front door for tabular data in the port. Composes:
 * :class:`TabularSchema` — categorical columns are one-hot encoded before
   fitting and re-argmaxed after generation, integer columns rounded and
   clipped;
-* :func:`fit_artifacts` — the single-device ensemble trainer;
+* :func:`fit_artifacts` — the ensemble trainer: single-device, or sharded
+  over a mesh of ranks and from an out-of-core dataset store;
 * :func:`sample` — the class-batched sampler (registry-selected);
 * :func:`impute` — the bridge-clamped conditional solve;
 * :class:`ForestArtifacts` ``save``/``load`` — the schema rides along in the
@@ -26,7 +27,7 @@ from repro_torch.config import ForestConfig
 from repro_torch.core.mixed_types import TabularSchema, _isnan
 from repro_torch.kernels.dispatch import Device
 from repro_torch.tabgen.artifacts import ForestArtifacts
-from repro_torch.tabgen.fitting import fit_artifacts
+from repro_torch.tabgen.fitting import _is_store, fit_artifacts
 from repro_torch.tabgen.imputation import impute as _impute
 from repro_torch.tabgen.sampling import sample_async as _sample_async
 
@@ -59,18 +60,24 @@ class TabularGenerator:
 
     def fit(self, X, y=None, *, seed: int = 0,
             checkpoint_dir: Optional[str] = None, resume: bool = False,
-            ensembles_per_batch: int = 0,
+            ensembles_per_batch: int = 0, mesh=None, pipeline="auto",
             device: Optional[Device] = None) -> "TabularGenerator":
         """Train on ``device`` (``None``: the GPU, or raise; ``"cpu"`` runs
         the plain PyTorch path). A schema one-hot/integer-encodes the raw
-        rows first. The other arguments go to :func:`fit_artifacts`."""
+        rows first, so a schema-aware fit takes rows in memory, not a
+        dataset store. The other arguments go to :func:`fit_artifacts`
+        (``mesh`` and ``pipeline`` to its sharded trainer)."""
         if self.schema is not None:
+            if _is_store(X):
+                raise ValueError(
+                    "schema-aware fit needs in-memory rows to encode; fit a "
+                    "store of already-encoded rows without a schema")
             self.schema.fit(X)
             X = self.schema.encode(X)
         self.artifacts = fit_artifacts(
             X, y, self.fcfg, seed=seed, checkpoint_dir=checkpoint_dir,
             resume=resume, ensembles_per_batch=ensembles_per_batch,
-            device=device)
+            mesh=mesh, pipeline=pipeline, device=device)
         return self
 
     def generate(self, n: int, *, sampler: Optional[str] = None,

@@ -26,11 +26,29 @@ from ``(seed, eid, 1)``, on the fit device. ``noise=`` replaces those draws
 with given tensors, e.g. to reproduce another generator's draws or to fit
 the same noise on two devices.
 
-The sharded trainer (``mesh=``) and out-of-core stores are not ported yet.
+The sharded trainer (``mesh=``, and every fit from a
+:class:`repro_torch.data.store.DatasetStore`): one process per rank of a
+``(data, model)`` mesh; rows shuffled by ``perm =
+default_rng(seed).permutation(n)`` and sharded over the data ranks with
+weight-masked class conditioning (no padded class blocks), the ensembles
+of a batch over the model ranks (:mod:`repro_torch.forest.distributed`).
+Its noise adds the data rank: ``(seed, eid, split, shard)``, and
+``noise(eid, split, shape, shard)`` replaces it. A store fit without a
+mesh takes this route on one rank, with no process group. Its batch loop
+runs pipelined by default (:class:`PipelineConfig`): a prefetch thread
+builds and uploads the inputs, on a CUDA stream of its own, while the
+main thread trains, and a writer thread gathers the results and writes
+the checkpoints; ``pipeline=None`` is the serial loop, and both give the
+same bits. Its checkpoints are the JAX package's (``trainer="sharded"``):
+either package resumes the other's.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import queue
+import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -41,14 +59,14 @@ from repro_torch.core import interpolants as itp
 from repro_torch.forest.binning import edges_with_sentinel, pack_codes, transform
 from repro_torch.forest.boosting import fit_ensemble
 from repro_torch.kernels.dispatch import Device, resolve_device
-from repro_torch.kernels.hist.ops import check_bins
+from repro_torch.obs import default_registry, default_tracer
 from repro_torch.tabgen.artifacts import RESULT_FIELDS, ForestArtifacts
 from repro_torch.tabgen.sampling import stream_seed
 from repro_torch.train import checkpoint as _ckpt
 
 # (eid, split, shape) -> (x1, jitter or None); split 0 = train, 1 = validation
-NoiseFn = Callable[[int, int, Tuple[int, ...]],
-                   Tuple[torch.Tensor, Optional[torch.Tensor]]]
+# (the sharded route adds the data rank: (eid, split, shape, shard))
+NoiseFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 _FIT_STREAM = 3   # after sampling's x1 / solve / impute streams
 
@@ -188,12 +206,14 @@ def _warm_host_arrays(base: ForestArtifacts):
                  ("feat", "thr_val", "leaf", "val_curve", "best_round"))
 
 
-def _build_lineage(n_rows: int, p: int, fcfg: ForestConfig,
+def _build_lineage(X, n_rows: int, p: int, fcfg: ForestConfig,
                    base: Optional[ForestArtifacts]) -> dict:
     """Data provenance recorded on the trained artifacts (and in the save
-    sidecar). The port trains from in-memory rows only, so ``store`` is
-    always None."""
+    sidecar): the store a model was fit from, if any, and its base."""
     lin = {"rows": int(n_rows), "p": int(p), "store": None, "base": None}
+    if _is_store(X):
+        lin["store"] = {"fingerprint": X.fingerprint,
+                        "version": int(X.version), "n_rows": int(X.n_rows)}
     if base is not None:
         # one level of history: the base's own lineage minus its base
         prev = {k: v for k, v in (base.lineage or {}).items() if k != "base"}
@@ -244,16 +264,28 @@ def _manifest_fingerprint(fcfg: ForestConfig, *, n_t: int, n_y: int,
     return fp
 
 
+def _manifest_batch_size(checkpoint_dir: str) -> Optional[int]:
+    """The batch size an existing checkpoint was written with, if any."""
+    path = os.path.join(checkpoint_dir, "manifest.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f).get("fingerprint", {}).get("ensembles_per_batch")
+
+
 def _run_grid_batches(run_batch, grid, bs: int, *,
                       checkpoint_dir: Optional[str], resume: bool,
-                      fingerprint: dict, warm_base: Optional[dict] = None):
+                      fingerprint: dict, warm_base: Optional[dict] = None,
+                      commit: bool = True):
     """Drive the (timestep, class) grid in batches with checkpoint/resume.
 
     ``run_batch(chunk)`` trains ``chunk`` (a list of (ti, yi)) and returns
     ``{field: np.ndarray}`` with leading dim ``len(chunk)``. ``warm_base``
     (a warm-start fit's base-run descriptor) lets the manifest accept a
     checkpoint dir that holds the base model's batches: the extension
-    retrains every batch and overwrites them.
+    retrains every batch and overwrites them. ``commit=False`` (every rank
+    of a sharded fit but the first) reads the checkpoint and writes
+    nothing.
     """
     manifest = (_ckpt.GridManifest(checkpoint_dir, fingerprint,
                                    warm_base=warm_base)
@@ -267,12 +299,195 @@ def _run_grid_batches(run_batch, grid, bs: int, *,
         if key_id in done:
             res_np = _ckpt.read_batch_npz(checkpoint_dir, b0)
         else:
-            res_np = run_batch(chunk)
-            if manifest:
+            with default_tracer().span("fit.batch", batch=b0,
+                                       ensembles=len(chunk)):
+                res_np = run_batch(chunk)
+            if manifest and commit:
                 _ckpt.write_batch_npz(checkpoint_dir, b0, res_np)
                 manifest.mark_done(key_id)
         for j, (ti, yi) in enumerate(chunk):
             results[(ti, yi)] = {k: v[j] for k, v in res_np.items()}
+    return results
+
+
+# ---------------------------------------------------------------------------
+# the pipelined grid driver (the sharded trainer's batch loop)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Knobs of the sharded trainer's pipelined batch loop.
+
+    ``prefetch_depth`` bounds both queues between the stages: the prefetch
+    thread builds at most this many batches' inputs ahead of the training
+    loop, and at most this many trained batches wait for the writer (the
+    backpressure that bounds host memory). ``async_checkpoint`` gathers the
+    results and writes the checkpoints on the writer thread; ``False``
+    writes them on the training thread (inputs still prefetch).
+    """
+    prefetch_depth: int = 2
+    async_checkpoint: bool = True
+
+
+_STOP = object()
+
+
+def _run_grid_batches_pipelined(dispatch, collect, grid, bs: int, *,
+                                checkpoint_dir: Optional[str], resume: bool,
+                                fingerprint: dict, prefetch,
+                                pcfg: PipelineConfig,
+                                warm_base: Optional[dict] = None,
+                                commit: bool = True):
+    """Producer/consumer version of :func:`_run_grid_batches`, over the
+    same batches, with the same results:
+
+    * prefetch thread: ``prefetch(chunk) -> inputs`` (host input build and
+      upload; skipped for batches the manifest already has);
+    * calling thread: ``dispatch(inputs) -> result`` (the training, with
+      every collective of the fit on this one thread);
+    * writer thread: ``collect(result, n) -> {field: np}`` (waits for the
+      batch, not for the device) and the durable ``batch_*.npz`` and
+      manifest writes (``commit``).
+
+    A stage that fails sets a shared stop event, the queues drain, and the
+    first error is raised on the calling thread. A batch is marked done in
+    the manifest only after its file is committed, so a crash resumes from
+    the last committed batch.
+    """
+    manifest = (_ckpt.GridManifest(checkpoint_dir, fingerprint,
+                                   warm_base=warm_base)
+                if checkpoint_dir else None)
+    done = manifest.load_done(resume) if manifest else set()
+
+    batches = [(b0, grid[b0:b0 + bs]) for b0 in range(0, len(grid), bs)]
+    depth = max(1, pcfg.prefetch_depth)
+    in_q: queue.Queue = queue.Queue(maxsize=depth)
+    out_q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    lock = threading.Lock()
+    errors: list = []
+    batch_np: dict = {}
+    tracer = default_tracer()
+    metrics = default_registry()
+    h_prefetch = metrics.histogram(
+        "fit_prefetch_seconds", "Per-batch host input-build time "
+        "(fit.prefetch span durations)")
+    h_dispatch = metrics.histogram(
+        "fit_dispatch_seconds", "Per-batch training time on the calling "
+        "thread (fit.dispatch span durations)")
+    h_write = metrics.histogram(
+        "fit_write_seconds", "Per-batch gather + checkpoint-commit time "
+        "(fit.write span durations)")
+    c_batches = metrics.counter(
+        "fit_batches", "Ensemble-grid batches by disposition", ("status",))
+
+    def _put(q, item):
+        """Bounded put that gives up when another stage failed."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _get(q):
+        while not stop.is_set():
+            try:
+                return q.get(timeout=0.05)
+            except queue.Empty:
+                continue
+        return _STOP
+
+    def _fail(exc):
+        with lock:
+            errors.append(exc)
+        stop.set()
+
+    def _producer():
+        try:
+            for b0, chunk in batches:
+                if (b0, len(chunk)) in done:
+                    item = (b0, chunk, None)     # committed: nothing to build
+                else:
+                    with tracer.span("fit.prefetch", batch=b0) as sp:
+                        inputs = prefetch(chunk)
+                    h_prefetch.observe(sp.duration_s)
+                    item = (b0, chunk, inputs)
+                if not _put(in_q, item):
+                    return
+            _put(in_q, _STOP)
+        except Exception as exc:  # noqa: BLE001 — raised on the caller
+            _fail(exc)
+
+    def _finish(b0, chunk, result):
+        with tracer.span("fit.write", batch=b0) as sp:
+            res_np = collect(result, len(chunk))
+            if manifest and commit:
+                _ckpt.write_batch_npz(checkpoint_dir, b0, res_np)
+                manifest.mark_done((b0, len(chunk)))
+            with lock:
+                batch_np[b0] = res_np
+        h_write.observe(sp.duration_s)
+
+    def _writer():
+        try:
+            while True:
+                item = _get(out_q)
+                if item is _STOP:
+                    return
+                _finish(*item)
+        except Exception as exc:  # noqa: BLE001 — raised on the caller
+            _fail(exc)
+
+    threads = [threading.Thread(target=_producer, name="tabgen-prefetch",
+                                daemon=True)]
+    if pcfg.async_checkpoint:
+        threads.append(threading.Thread(target=_writer, name="tabgen-writer",
+                                        daemon=True))
+    for th in threads:
+        th.start()
+    completed = False
+    try:
+        while True:
+            item = _get(in_q)
+            if item is _STOP:
+                break
+            b0, chunk, inputs = item
+            if inputs is None:
+                res_np = _ckpt.read_batch_npz(checkpoint_dir, b0)
+                with lock:
+                    batch_np[b0] = res_np
+                c_batches.inc(1, status="cached")
+                continue
+            with tracer.span("fit.dispatch", batch=b0) as sp:
+                result = dispatch(inputs)
+            h_dispatch.observe(sp.duration_s)
+            c_batches.inc(1, status="dispatched")
+            if pcfg.async_checkpoint:
+                if not _put(out_q, (b0, chunk, result)):
+                    break
+            else:
+                _finish(b0, chunk, result)
+        if pcfg.async_checkpoint and not stop.is_set():
+            _put(out_q, _STOP)
+        completed = True
+    except Exception as exc:  # noqa: BLE001 — one error path
+        _fail(exc)
+    finally:
+        # KeyboardInterrupt and the like skip the except above: stop the
+        # stages so the joins cannot hang
+        if not completed:
+            stop.set()
+        for th in threads:
+            th.join()
+    if errors:
+        raise errors[0]
+
+    results = {}
+    for b0, chunk in batches:
+        for j, (ti, yi) in enumerate(chunk):
+            results[(ti, yi)] = {k: v[j] for k, v in batch_np[b0].items()}
     return results
 
 
@@ -288,7 +503,7 @@ def _is_store(X) -> bool:
 def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
                   seed: int = 0, checkpoint_dir: Optional[str] = None,
                   resume: bool = False, ensembles_per_batch: int = 0,
-                  mesh=None, row_chunk: int = 65536,
+                  mesh=None, row_chunk: int = 65536, pipeline="auto",
                   warm_start: Optional[ForestArtifacts] = None,
                   device: Optional[Device] = None,
                   noise: Optional[NoiseFn] = None) -> ForestArtifacts:
@@ -305,22 +520,43 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
     validation (split 1) bridge in place of the seeded draws; ``jitter``
     may be None when ``fcfg.sigma == 0``.
 
-    ``mesh`` (the sharded trainer) and store-backed ``X`` are not ported
-    yet and raise ``NotImplementedError``.
+    ``mesh`` selects the trainer: ``None`` is the single-device one; a
+    ``DeviceMesh`` with dimensions ``("data", "model")``
+    (:func:`repro_torch.launch.mesh.forest_mesh`) the sharded one, on this
+    process's rank; ``"auto"`` builds a mesh over every visible GPU
+    (:func:`repro_torch.launch.mesh.auto_forest_mesh`), ``None`` on one.
+    ``X`` may be a :class:`repro_torch.data.store.DatasetStore`: such a fit
+    always takes the sharded trainer, on one rank with no process group
+    when there is no mesh; class stats come from the store (unless ``y``
+    is given) and the rows are read from its shards. ``pipeline``
+    (``"auto"``, a :class:`PipelineConfig` or ``None`` for the serial
+    loop) steers the sharded trainer's batch loop; the single-device
+    trainer ignores it. On the sharded route ``noise`` is called as
+    ``noise(eid, split, shape, shard)``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded trainer (mesh=...) is not ported yet; the port "
-            "trains on one device (mesh=None)")
-    if _is_store(X):
-        raise NotImplementedError(
-            "out-of-core dataset stores are not ported yet; pass the rows "
-            "as an array")
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh={mesh!r}: expected a DeviceMesh, None, "
+                             "or 'auto'")
+        from repro_torch.launch.mesh import auto_forest_mesh
+        mesh = auto_forest_mesh()
+    if pipeline == "auto":
+        pipeline = PipelineConfig()
+    elif not (pipeline is None or isinstance(pipeline, PipelineConfig)):
+        raise ValueError(f"pipeline={pipeline!r}: expected 'auto', None, or "
+                         "a PipelineConfig")
     device = resolve_device(device)
-    if device.type == "cuda":
-        # the hist kernel's limit, before any binning or device work
-        p_in = int(np.shape(X)[1])
-        check_bins(p_in, p_in if fcfg.multi_output else 1, fcfg.n_bins)
+    if mesh is not None or _is_store(X):
+        from repro_torch.forest.distributed import Shards
+        shards = Shards.one() if mesh is None else Shards.from_mesh(mesh)
+        if mesh is not None and mesh.device_type != device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the fit on "
+                             f"{device}")
+        return _fit_artifacts_sharded(
+            X, y, fcfg, shards, device=device, seed=seed,
+            checkpoint_dir=checkpoint_dir, resume=resume,
+            ensembles_per_batch=ensembles_per_batch, row_chunk=row_chunk,
+            pipeline=pipeline, warm_start=warm_start, noise=noise)
     stats = None
     if warm_start is not None:
         Xs = X if hasattr(X, "shape") else np.asarray(X, np.float32)
@@ -395,5 +631,195 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
     arts = ForestArtifacts.from_grid_results(results, fcfg.n_t, n_y, mins,
                                              maxs, classes, counts, fcfg,
                                              device)
-    arts.lineage = _build_lineage(np.shape(X)[0], p, fcfg, warm_start)
+    arts.lineage = _build_lineage(X, np.shape(X)[0], p, fcfg, warm_start)
+    return arts
+
+
+# ---------------------------------------------------------------------------
+# the sharded trainer
+# ---------------------------------------------------------------------------
+
+def _upload(host, device, stream):
+    """Host tensors to ``device``: on a CUDA device, pinned and copied on
+    ``stream``, with the event that marks the copies done; else as they
+    are (the CPU) and no event."""
+    if device.type != "cuda":
+        return tuple(t.to(device) for t in host), None
+    with torch.cuda.stream(stream):
+        out = tuple(t.pin_memory().to(device, non_blocking=True)
+                    for t in host)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return out, event
+
+
+def _fit_artifacts_sharded(X, y, fcfg: ForestConfig, shards, *,
+                           device: torch.device, seed: int,
+                           checkpoint_dir: Optional[str], resume: bool,
+                           ensembles_per_batch: int, row_chunk: int,
+                           pipeline: Optional[PipelineConfig],
+                           warm_start: Optional[ForestArtifacts] = None,
+                           noise: Optional[NoiseFn] = None
+                           ) -> ForestArtifacts:
+    """The sharded trainer on this rank (``shards``): the JAX package's
+    ``_fit_artifacts_sharded``, rule for rule.
+
+    Rows (rescaled per class, weight-masked class conditioning) are
+    shuffled by ``perm`` and sharded over the data ranks; each rank builds
+    and uploads its own slice once. The grid is trained in batches of
+    ``ensembles_per_batch`` (rounded up to the model ranks) split over the
+    model ranks, with the single-device route's checkpoints (fingerprint
+    ``trainer="sharded"``), which only the first rank writes. A resume
+    that does not pin the batch size takes the checkpoint's, and refuses
+    one the model ranks cannot split. The tail batch is padded by
+    repeating its last ensemble, and the copies are dropped.
+    """
+    from repro_torch.forest.distributed import (build_batch_inputs,
+                                                build_row_shards,
+                                                make_distributed_fit)
+
+    if _is_store(X):
+        X_np = X                       # rows are read from the shards
+        n, p = X.shape
+        if y is None:
+            y = X.labels()
+            classes, counts, mins, maxs = X.class_stats()
+        else:
+            # explicit labels override the store's own: stream the
+            # per-class scalers over the shards again
+            y = np.asarray(y)
+            classes, counts, mins, maxs = class_stats_streaming(X, y,
+                                                                row_chunk)
+    else:
+        X_np = X if isinstance(X, np.ndarray) else np.asarray(X, np.float32)
+        n, p = X_np.shape
+        if y is None:
+            y = np.zeros((n,), np.int64)
+        classes, counts, mins, maxs = class_stats_streaming(X_np, y,
+                                                            row_chunk)
+    if warm_start is not None:
+        _check_warm_start(warm_start, fcfg, p)
+        _check_warm_classes(warm_start, classes)
+        # the base scalers: the replayed trees route in the base model's
+        # [-1, 1] space (this data's counts stay, for label sampling)
+        mins = warm_start.mins.cpu().numpy()
+        maxs = warm_start.maxs.cpu().numpy()
+    n_y = len(classes)
+    cid_full = np.searchsorted(classes, np.asarray(y)).astype(np.int32)
+    m_size = shards.model_size
+    commit = shards.data_rank == 0 and shards.model_rank == 0
+
+    # a deterministic shuffle, so every row shard sees every class: the
+    # sketch takes the head of each shard
+    perm = np.random.default_rng(seed).permutation(n)
+
+    ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff,
+                       fcfg.t_schedule).numpy()
+    grid = [(ti, yi) for ti in range(fcfg.n_t) for yi in range(n_y)]
+    bs = ensembles_per_batch or max(m_size, min(len(grid), 8))
+    if not ensembles_per_batch and resume and checkpoint_dir:
+        # elastic resume: the batch size is part of the checkpoint layout
+        bs = _manifest_batch_size(checkpoint_dir) or bs
+    bs = -(-bs // m_size) * m_size          # whole blocks per model rank
+    if resume and checkpoint_dir:
+        stale = _manifest_batch_size(checkpoint_dir)
+        if stale and stale != bs:
+            raise ValueError(
+                f"checkpoint at {checkpoint_dir} was written with "
+                f"ensembles_per_batch={stale} but this run resolves to "
+                f"{bs} (the {m_size} model ranks need a multiple of "
+                f"{m_size}); resume with ensembles_per_batch={stale} on a "
+                "compatible mesh, or retrain with resume=False.")
+
+    warm_rounds = warm_start.config.n_trees if warm_start else 0
+    fit = make_distributed_fit(shards, fcfg, seed=seed, stream=_FIT_STREAM,
+                               device=device, noise=noise)
+    warm_arrays = (None if warm_start is None
+                   else _warm_host_arrays(warm_start))
+
+    def warm_slices(chunk):
+        if warm_arrays is None:
+            return None
+        tis = [ti for ti, _ in chunk]
+        yis = [yi for _, yi in chunk]
+        return tuple(a[tis, yis] for a in warm_arrays)
+
+    def pad(chunk):
+        return chunk + [chunk[-1]] * (bs - len(chunk))
+
+    fingerprint = _manifest_fingerprint(
+        fcfg, n_t=fcfg.n_t, n_y=n_y, batch_size=bs, n_rows=n, p=p,
+        trainer="sharded", warm_rounds=warm_rounds)
+    warm_base = (None if warm_start is None else
+                 {"config": dataclasses.asdict(warm_start.config),
+                  "grid": [fcfg.n_t, n_y]})
+    on_cuda = device.type == "cuda"
+    # the pipeline uploads on a stream of its own; the serial loop on the
+    # current one
+    upload_stream = (torch.cuda.Stream(device)
+                     if on_cuda and pipeline is not None else None)
+    row_cache: dict = {}
+
+    def rows():
+        """This rank's rows on the device and the event of their upload
+        (None once they are there). Built on first use, so a resume with
+        every batch committed reads no row; only one thread calls it (the
+        serial loop's, or the pipeline's prefetch thread)."""
+        if "rows" in row_cache:
+            return row_cache["rows"], None
+        host = build_row_shards(X_np, cid_full, mins, maxs, perm, shards)
+        row_cache["rows"], event = _upload(host, device, upload_stream)
+        return row_cache["rows"], event
+
+    def inputs(chunk):
+        """Everything one batch needs, padded to the batch size."""
+        padded = pad(chunk)
+        return (*rows(), build_batch_inputs(padded, ts, n_y),
+                warm_slices(padded))
+
+    def train(dev_rows, event, batch, warm):
+        if event is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(event)
+            for t in dev_rows:
+                t.record_stream(stream)
+        return fit(*dev_rows, *batch, warm=warm)
+
+    if pipeline is None:
+        def run_batch(chunk):
+            res = train(*inputs(chunk))
+            return {k: getattr(res, k)[:len(chunk)].cpu().numpy()
+                    for k in RESULT_FIELDS}
+
+        results = _run_grid_batches(run_batch, grid, bs,
+                                    checkpoint_dir=checkpoint_dir,
+                                    resume=resume, fingerprint=fingerprint,
+                                    warm_base=warm_base, commit=commit)
+    else:
+        def dispatch(batch_inputs):
+            res = train(*batch_inputs)
+            if not on_cuda:
+                return {k: getattr(res, k) for k in RESULT_FIELDS}, None
+            # the results to pinned host memory on this stream; the writer
+            # waits for this batch's event, not for the device
+            host = {k: getattr(res, k).to("cpu", non_blocking=True)
+                    for k in RESULT_FIELDS}
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            return host, done
+
+        def collect(result, n_real):
+            host, done = result
+            if done is not None:
+                done.synchronize()
+            return {k: v[:n_real].numpy() for k, v in host.items()}
+
+        results = _run_grid_batches_pipelined(
+            dispatch, collect, grid, bs, checkpoint_dir=checkpoint_dir,
+            resume=resume, fingerprint=fingerprint, prefetch=inputs,
+            pcfg=pipeline, warm_base=warm_base, commit=commit)
+    arts = ForestArtifacts.from_grid_results(results, fcfg.n_t, n_y, mins,
+                                             maxs, classes, counts, fcfg,
+                                             device)
+    arts.lineage = _build_lineage(X, n, p, fcfg, warm_start)
     return arts

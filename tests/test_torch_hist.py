@@ -14,8 +14,8 @@ import torch
 from repro.kernels.hist.hist_kernel import histogram_pallas
 from repro.kernels.hist.ref import histogram_ref as jax_histogram_ref
 from repro_torch.forest.hist import build_histogram
-from repro_torch.kernels.hist.ops import (CHUNK, MAX_SMEM, blocks,
-                                          check_bins, histogram, max_bins,
+from repro_torch.kernels.hist.ops import (BYTE_BINS, CHUNK, MAX_SMEM,
+                                          bin_windows, blocks, histogram,
                                           narrow_codes, node_layout,
                                           node_order, plan)
 from repro_torch.kernels.hist.ref import histogram_ref
@@ -52,8 +52,8 @@ def inputs(n, p, out, n_nodes, n_bins, seed, lanes=1, zero_every=0,
 def expected(codes, nid, g, w, n_nodes, n_bins):
     """The plain version, with a code outside [0, n_bins) adding its row to
     no cell of its feature (the kernel's spare bin, never written out)."""
-    spare = torch.where((codes >= 0) & (codes < n_bins), codes.to(torch.int32),
-                        n_bins)
+    codes = codes.to(torch.int32)            # n_bins may pass int8's range
+    spare = torch.where((codes >= 0) & (codes < n_bins), codes, n_bins)
     sums, cnt = histogram_ref(spare, nid, g, w, n_nodes, n_bins + 1)
     return sums[:, :, :, :n_bins], cnt[:, :, :, :n_bins]
 
@@ -317,38 +317,72 @@ def test_plain_version_drops_codes_outside_the_bins(code_type):
 
 
 @pytest.mark.parametrize("p,out", [(368, 368), (368, 1), (5, 5), (533, 533)])
-def test_card_fit_bins_check(p, out):
-    """The check a card fit runs before any device work: the kernel's most
-    bins at that width (255, one-byte codes), and n_bins past it refused
-    with a message naming both."""
-    assert max_bins(p, out) == 255
-    check_bins(p, out, 255)
-    with pytest.raises(ValueError, match=r"n_bins=256: .* at most 255 bins"):
-        check_bins(p, out, 256)
+def test_bin_windows_cover_the_bins(p, out):
+    """At each width the kernel takes any n_bins: contiguous, near-equal
+    windows cover [0, n_bins) in order, each one pass that plan takes; 255
+    bins are one pass and 256 two of 128."""
+    for n_bins in (1, 64, 255, 256, 300, 511, 1024):
+        for n_nodes in (1, 2, 64):
+            wins = bin_windows(p, out, n_bins, n_nodes)
+            assert wins[0][0] == 0 and wins[-1][1] == n_bins
+            assert all(a[1] == b[0] for a, b in zip(wins, wins[1:]))
+            widths = [b1 - b0 for b0, b1 in wins]
+            assert max(widths) - min(widths) <= 1
+            assert len(wins) == -(-n_bins // BYTE_BINS)
+            for w in widths:
+                assert plan(p, out, w, n_nodes).smem <= MAX_SMEM
+    assert bin_windows(p, out, 255, 2) == [(0, 255)]
+    assert bin_windows(p, out, 256, 2) == [(0, 128), (128, 256)]
 
 
 @pytest.mark.parametrize("multi_output", [False, True])
-def test_card_fit_refuses_bins_before_any_device_work(monkeypatch,
-                                                      multi_output):
-    """fit_artifacts on a CUDA device checks n_bins against the hist kernel
-    before it bins the data or touches the device; the CPU path takes 256
-    bins (XGBoost's default)."""
+def test_fit_at_256_bins_needs_no_check(multi_output):
+    """A fit takes XGBoost's default of 256 bins on either device: the
+    trainer has no bins check left, the card runs it in two windows a
+    level, and the plain path on the CPU equals the JAX trainer's."""
     from repro_torch.config import ForestConfig
     from repro_torch.tabgen import fitting
+    assert not hasattr(fitting, "check_bins")
     X = np.random.default_rng(0).normal(size=(50, 3)).astype(np.float32)
     cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
                        n_bins=256, multi_output=multi_output)
-
-    def no_device_work(*a, **k):
-        raise AssertionError("data prepared before the bins check")
-    monkeypatch.setattr(fitting, "resolve_device",
-                        lambda device: torch.device("cuda"))
-    monkeypatch.setattr(fitting, "prepare_classes", no_device_work)
-    with pytest.raises(ValueError, match="n_bins=256"):
-        fitting.fit_artifacts(X, None, cfg, device="cuda")
-    monkeypatch.undo()
+    out = 3 if multi_output else 1
+    for n_nodes in (1, 2, 4):
+        assert len(bin_windows(3, out, 256, n_nodes)) == 2
     art = fitting.fit_artifacts(X, None, cfg, device="cpu")
     assert torch.isfinite(art.leaf).all()
+    assert art.thr_val.shape[-1] == 3
+
+
+@pytest.mark.parametrize("multi_output", [False, True])
+def test_windows_placed_at_their_offsets_equal_all_bins(multi_output):
+    """What a windowed launch computes, emulated with the plain version:
+    per window, the codes shifted by its first bin with the codes outside
+    it dropped, placed at its offset, equal the histograms over all 300
+    bins to the bit; and the kernel's narrowing of each window (SO) keeps
+    exactly those codes."""
+    n_bins, n_nodes, p = 300, 4, 9
+    out, lanes = (p, 1) if multi_output else (1, p)
+    codes, nid, g, w = inputs(400, p, out, n_nodes, n_bins, seed=3,
+                              lanes=lanes, zero_every=5)
+    t = [torch.from_numpy(a) for a in (codes, nid, g, w)]
+    want = histogram_ref(*t, n_nodes, n_bins)
+    got = [torch.zeros_like(want[0]), torch.zeros_like(want[1])]
+    wins = bin_windows(p, out, n_bins, n_nodes)
+    assert len(wins) == 2
+    for lo, hi in wins:
+        shifted = t[0] - lo
+        inside = (shifted >= 0) & (shifted < hi - lo)
+        part = histogram_ref(torch.where(inside, shifted, -1), *t[1:],
+                             n_nodes, hi - lo)
+        got[0][:, :, :, lo:hi] = part[0]
+        got[1][:, :, :, lo:hi] = part[1]
+        pl = plan(p, out, hi - lo, n_nodes)
+        narrow = narrow_codes(t[0], hi - lo, pl, lo)
+        cols = [(j // pl.feats) * pl.tile + j % pl.feats for j in range(p)]
+        assert torch.equal(narrow[:400, cols].to(torch.int32),
+                           torch.where(inside, shifted, hi - lo))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_plan_at_photons_width():
@@ -385,9 +419,10 @@ def test_narrowed_codes_keep_every_histogram_bit(code_type, n_bins):
     where = [(j // pl.feats) * pl.tile + j % pl.feats for j in range(7)]
     rest = sorted(set(range(pl.code_stride)) - set(where))
     assert (wide[:, rest] == n_bins).all()
-    inside = (t[0] >= 0) & (t[0] < n_bins)
-    assert torch.equal(wide[:, where], torch.where(
-        inside, t[0].to(torch.int32), n_bins))
+    wide_codes = t[0].to(torch.int32)        # n_bins may pass int8's range
+    inside = (wide_codes >= 0) & (wide_codes < n_bins)
+    assert torch.equal(wide[:, where], torch.where(inside, wide_codes,
+                                                   n_bins))
     got = histogram_ref(wide[:, where], t[1], t[2], t[3], 4, n_bins + 1)
     ref = expected(*t, 4, n_bins)
     assert torch.equal(got[0][:, :, :, :n_bins], ref[0])
@@ -422,6 +457,9 @@ CUDA_CASES = [
     (130, 368, 1, 368, 8, 64, None),
     (700, 37, 37, 1, 8, 64, "empty_nodes"),
     (700, 37, 1, 37, 8, 64, "empty_nodes"),
+    (600, 37, 37, 1, 4, 256, None), (600, 37, 1, 37, 4, 256, None),
+    (600, 37, 37, 1, 4, 300, "out_of_range"),
+    (600, 37, 1, 37, 4, 300, "out_of_range"),
 ]
 
 
@@ -453,34 +491,43 @@ def test_cuda_kernel_equals_plain_cpu_version(cuda_device, n, p, out, lanes,
 
 
 @pytest.mark.cuda
-def test_cuda_fit_refuses_256_bins_before_any_launch(cuda_device):
+def test_cuda_fit_at_256_bins_runs(cuda_device):
+    """A card fit at 256 bins runs the kernel (two windows a launch) and
+    equals the plain path on the CPU given the same noise."""
     from repro_torch.config import ForestConfig
     from repro_torch.tabgen import fit_artifacts
     X = np.random.default_rng(0).normal(size=(50, 3)).astype(np.float32)
     cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
                        n_bins=256)
+
+    def noise(eid, split, shape):
+        gen = torch.Generator().manual_seed(100 * eid + split)
+        return torch.randn(shape, generator=gen), None
     before = histogram.launches
-    with pytest.raises(ValueError, match="n_bins=256"):
-        fit_artifacts(X, None, cfg, device=cuda_device)
-    assert histogram.launches == before
+    art = fit_artifacts(X, None, cfg, device=cuda_device, noise=noise)
+    assert histogram.launches > before
+    ref = fit_artifacts(X, None, cfg, device="cpu", noise=noise)
+    assert torch.equal(art.feat.cpu(), ref.feat)
+    assert torch.allclose(art.leaf.cpu(), ref.leaf, atol=1e-5)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
-@pytest.mark.parametrize("n_bins", [64, 200])
-def test_cuda_narrowing_equals_plain_version(cuda_device, code_type, n_bins):
+@pytest.mark.parametrize("n_bins,lo", [(64, 0), (200, 0), (150, 150)])
+def test_cuda_narrowing_equals_plain_version(cuda_device, code_type, n_bins,
+                                             lo):
     from repro_torch.kernels.hist.ops import _lib
     np_t, _ = CODE_TYPES[code_type]
     info = np.iinfo(np_t)
-    codes = inputs(333, 29, 1, 2, min(n_bins, info.max), seed=4,
+    codes = inputs(333, 29, 1, 2, min(lo + n_bins, info.max), seed=4,
                    edge="out_of_range")[0]
     codes = torch.from_numpy(np.clip(codes, info.min, info.max).astype(np_t))
     pl = plan(29, 1, n_bins)
-    ref = narrow_codes(codes, n_bins, pl)
+    ref = narrow_codes(codes, n_bins, pl, lo)
     got = torch.empty_like(ref, device=cuda_device)
     rc = _lib().hist_narrow(codes.to(cuda_device).data_ptr(),
                             codes.element_size(), got.data_ptr(), 333, 29,
-                            pl.feats, pl.tile, pl.code_stride, n_bins,
+                            pl.feats, pl.tile, pl.code_stride, n_bins, lo,
                             torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()

@@ -60,7 +60,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.tree_predict.ops, "
             "repro_torch.kernels.hist.ops, repro_torch.models.lm, "
             "repro_torch.models.convert, repro_torch.launch.serve, "
-            "repro_torch.kernels.flash_attention.ops;"
+            "repro_torch.kernels.flash_attention.ops, "
+            "repro_torch.data.store, repro_torch.forest.distributed, "
+            "repro_torch.launch.mesh, repro_torch.launch.ingest, "
+            "repro_torch.launch.train_forest, repro_torch.obs;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -120,6 +123,33 @@ def test_training_defaults_to_gpu_and_raises_without_one(monkeypatch):
     assert gen.artifacts.device == torch.device("cpu")
     X2, _ = gen.generate(10, seed=0)
     assert X2.shape == (10, 3) and np.isfinite(X2).all()
+
+
+def test_scaleout_defaults_to_gpu_and_raises_without_one(monkeypatch,
+                                                         tmp_path):
+    """A store fit, the training CLI, the streamed bin edges and a mesh take
+    the GPU unless asked for the CPU."""
+    from repro_torch.data.store import ingest
+    from repro_torch.forest.binning import fit_bins_streaming
+    from repro_torch.launch import train_forest
+    from repro_torch.launch.mesh import forest_mesh
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, 3)).astype(np.float32)
+    store = ingest([X], str(tmp_path / "store"), shard_rows=16)
+    cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
+                       n_bins=8)
+    monkeypatch.setattr(dispatch.torch.cuda, "is_available", lambda: False)
+    for call in (lambda: fit_artifacts(store, None, cfg),
+                 lambda: TabularGenerator(cfg).fit(store),
+                 lambda: fit_bins_streaming(store, 8),
+                 lambda: forest_mesh(1, 1),
+                 lambda: train_forest.main(["--data-dir", store.directory,
+                                            "--mesh", "none"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    art = fit_artifacts(store, None, cfg, device="cpu")
+    assert art.device == torch.device("cpu")
+    assert fit_bins_streaming(store, 8, device="cpu").shape == (3, 7)
 
 
 def test_lm_serving_defaults_to_gpu_and_raises_without_one(monkeypatch):

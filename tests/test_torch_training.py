@@ -577,16 +577,23 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, small_data, monkeypatch):
                                       np.asarray(getattr(jart, f)))
 
 
-def test_fit_refuses_what_is_not_ported(small_data):
+def test_fit_routes_meshes_and_stores(small_data, tmp_path):
+    """What the port used to refuse it now routes: ``mesh="auto"`` on a
+    host without GPUs is the single-device fit, a dataset store takes the
+    sharded trainer on one rank (its lineage names the store), and a
+    malformed mesh or pipeline is refused."""
+    from repro_torch.data.store import ingest
     X, y = small_data
-    with pytest.raises(NotImplementedError, match="sharded"):
-        fit_artifacts(X, y, SMALL, mesh="auto", device="cpu")
-
-    class Store:
-        fingerprint, version, shape = "abc", 1, (96, 3)
-
-    with pytest.raises(NotImplementedError, match="store"):
-        fit_artifacts(Store(), None, SMALL, device="cpu")
+    auto = fit_artifacts(X, y, SMALL, mesh="auto", device="cpu")
+    assert_same(auto, fit_artifacts(X, y, SMALL, device="cpu"))
+    store = ingest([(X, y)], str(tmp_path / "store"), shard_rows=40)
+    art = fit_artifacts(store, None, SMALL, device="cpu")
+    assert torch.isfinite(art.leaf).all()
+    assert art.lineage["store"]["n_rows"] == len(X)
+    with pytest.raises(ValueError, match="mesh="):
+        fit_artifacts(X, y, SMALL, mesh="4x2", device="cpu")
+    with pytest.raises(ValueError, match="pipeline="):
+        fit_artifacts(store, None, SMALL, pipeline="fast", device="cpu")
 
 
 def test_tabular_generator_fit_round_trips_the_schema(tmp_path):
