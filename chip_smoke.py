@@ -43,14 +43,30 @@
    at n=120,000, ddim and em on the same arrays as a diffusion model, and an
    impute of 512 rows. Checks shapes, finiteness, padding invariance,
    observed cells and the kernel's launch count per call.
-7. Drives the training path through ``TabularGenerator.fit`` at the same
+7. Drives the forest serving plane at the same width: a ``ModelRegistry``
+   of three seeded photons models (leaves 5.65 GB each) with a device
+   budget of two, acquired A, B, C, A (each demotion must free >= 0.95 of
+   a model's bytes, the hot set's ``registry_hot_bytes`` must equal its
+   tensor bytes, promotions timed); 48 euler requests of 64-4,000 rows from
+   4 threads (about 2/3 interactive) through the ``InflightScheduler`` and
+   through its drain arm (``sync_resolve=True``): every request bit-equal
+   to a ``sample()`` replay of its batch, >= 2 batches in flight, 99
+   ``tree_predict`` launches a batch, rows/s, queue wait and device time
+   from the spans, and how many batches' copies finished while the next
+   batch's device work had not; a swap of A for A' (seed 3) under 16
+   requests (none dropped, the batches after it bit-equal on A', no
+   kernel library built or loaded); ``serve_http`` in a thread (generate,
+   impute, trace, ``/metrics`` with the device gauges, a profiler capture);
+   and the refresh loop on a two-moons model (ingest, train_forest,
+   serve_http, refresh: append, extend on the card, reload to version 2).
+8. Drives the training path through ``TabularGenerator.fit`` at the same
    width (p=368, duplicate_k=20, n_trees=20, max_depth=7, n_bins=64,
    learning_rate=1.5, reg_lambda=1.0) on calorimeter-like showers made here
    from a seed: MO on a grid cut to n_t=3 x 2 classes of 8,000 rows (6
    ensembles of 160,000 rows) and SO on n_t=2 x 1 class (368 lanes). Checks
    the ``hist`` launch count, that a resume from the checkpoint launches
    nothing, and generates 1,000 rows from the trained MO model.
-8. Drives the out-of-core sharded training path at the same width (MO,
+9. Drives the out-of-core sharded training path at the same width (MO,
    n_t=2 x 2 classes of 8,000 rows: 4 ensembles of 320,000 weight-masked
    rows): ``ingest`` into a store of 4,096-row shards, a store fit under a
    one-rank NCCL group on a 1x1 ``DeviceMesh`` (pipelined, checkpointed;
@@ -59,7 +75,7 @@
    equal; generates 1,000 rows from the store model; runs the ingest and
    training CLIs on a small store against the API fit. Logs rows/s of the
    ingest and seconds per ensemble of each fit.
-9. Serves smollm-135m at its full width (30 layers, d_model 576, 9/3
+10. Serves smollm-135m at its full width (30 layers, d_model 576, 9/3
    heads, vocab 49,152; random weights from a seed, built on the device)
    through ``serve_batch``: 8 prompts of 2,048 tokens, 64 new tokens, fp32.
    Checks the tokens, 30 kernel launches (one per prefill layer) and none
@@ -67,7 +83,7 @@
    of device time. Then bf16, the prefill entry point's default: 30
    launches per prefill and none in two decode steps; one prefill timed
    (seconds, tokens/s) and one profiled for the kernel's share.
-10. Checks every path against the plain PyTorch path on the CPU at a small
+11. Checks every path against the plain PyTorch path on the CPU at a small
    size (a solve, a save -> load round trip, and logs whether one seed
    gives the card and the CPU different rows, a two-moons fit with the same
    noise, on one device and on the sharded route's one rank, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
@@ -88,6 +104,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -416,6 +433,544 @@ def check_small(device, seed=11):
         f"{'identical' if np.array_equal(X1, X3) else 'differ'} (the two "
         f"devices draw different noise for one seed, by design), max abs "
         f"diff {np.abs(X1 - X3).max()!r}")
+
+
+# ---------------------------------------------------------------------------
+# the forest serving plane
+# ---------------------------------------------------------------------------
+
+# 48 euler requests of 64-4,000 rows from 4 client threads, ~2/3 interactive
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_ROWS = 48, 4, (64, 4000)
+SWAP_REQUESTS = 16
+FOREST_BUCKETS = (64, 256, 1024)   # rows a class
+
+
+def _probe_scheduler():
+    """An InflightScheduler that counts the batches whose rows reached the
+    host while the next batch was still being enqueued or running on the
+    device: the overlap that a copy enqueued at resolve time, behind the
+    next batch's kernels, would have removed. ``compared`` counts the
+    batches whose successor's dispatch had begun when their wait ended."""
+    from repro_torch.serving import InflightScheduler
+
+    class Probe(InflightScheduler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self._probe_lock = threading.Lock()
+            self._records = []            # one per dispatch begun
+            self.copy_before_next = 0
+            self.compared = 0
+
+        def _dispatch(self, batch):
+            rec = {"sample": None}
+            with self._probe_lock:
+                self._records.append(rec)
+            inflight = super()._dispatch(batch)
+            with self._probe_lock:
+                if inflight is None:
+                    self._records.remove(rec)
+                else:
+                    rec["sample"] = inflight.sample
+            return inflight
+
+        def _resolve(self, inflight):
+            ready = inflight.sample.ready
+            if ready is not None:
+                ready.synchronize()
+                with self._probe_lock:
+                    i = next(k for k, r in enumerate(self._records)
+                             if r["sample"] is inflight.sample)
+                    nxt = (self._records[i + 1]
+                           if i + 1 < len(self._records) else None)
+                    if nxt is not None:
+                        self.compared += 1
+                        self.copy_before_next += int(
+                            nxt["sample"] is None
+                            or not nxt["sample"].ready.query())
+            super()._resolve(inflight)
+
+    return Probe
+
+
+def replay_served(tracer, futures, handles, sampler="euler"):
+    """Hold every served request against ``sample()`` of its batch (batch
+    membership from the ``serve.device`` spans' links), bit for bit, on
+    one of ``handles`` (a batch dispatched across a swap may have run on
+    either version). Returns {batch_id: index of the handle it matched}."""
+    from repro_torch.serving.scheduler import BATCH_SEED_BASE
+    from repro_torch.tabgen import sample
+    by_id = {f.request_id: f for f in futures}
+    matched, seen = {}, set()
+    for span in tracer.spans(name="serve.device"):
+        if not any(r in by_id for r in span.links):
+            continue
+        total = span.attrs["rows"]
+        seed = BATCH_SEED_BASE + span.attrs["batch_id"]
+        served = [by_id[r].result(timeout=0) for r in span.links]
+        for k, h in enumerate(handles):
+            X, y = sample(h.artifacts, total, sampler=sampler, seed=seed,
+                          pad_to=h.bucket(total, seed))
+            off, same = 0, True
+            for Xr, yr in served:
+                same &= (np.array_equal(Xr, X[off:off + len(Xr)])
+                         and np.array_equal(yr, y[off:off + len(Xr)]))
+                off += len(Xr)
+            if same and off == total:
+                matched[span.attrs["batch_id"]] = k
+                break
+        else:
+            raise AssertionError(
+                f"batch {span.attrs['batch_id']} ({total} rows): served rows "
+                "differ from the sample() replay of the batch")
+        seen.update(span.links)
+    if seen != set(by_id):
+        raise AssertionError(f"{len(set(by_id) - seen)} requests in no batch")
+    return matched
+
+
+def _median(xs):
+    return float(np.median(xs)) if len(xs) else None
+
+
+def drive_forest_serving(device, tmp):
+    """The forest serving plane at photons width: a registry of three
+    models under a two-model budget (LRU promotions and demotions), the
+    in-flight scheduler against its drain arm (rows bit-equal to a replay
+    of each batch), a hot swap under traffic, the HTTP front end, and the
+    refresh loop on a two-moons model. Returns (tree_predict launches,
+    hist launches, numbers)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tree_predict.ops import forest_predict
+    from repro_torch.launch.serve_http import ServingApp, serve_in_thread
+    from repro_torch.obs import (MetricsRegistry, Profiler, ResourceMonitor,
+                                 Tracer)
+    from repro_torch.serving import AdmissionController, ModelRegistry
+    from repro_torch.serving.registry import artifacts_nbytes
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = photons_config(n_t=N_T, multi_output=True)
+    m = N_ROWS // N_Y
+    out = {}
+    tp_launches = 0
+
+    # -- registry: 3 models, a budget of 2, acquired A, B, C, A -------------
+    metrics = MetricsRegistry()
+    reg = None
+    for name, seed in (("A", 0), ("B", 1), ("C", 2)):
+        art = random_artifacts(cfg, N_Y, P, m, seed=seed, device=device)
+        if reg is None:
+            nbytes = artifacts_nbytes(art)
+            reg = ModelRegistry(device=device, buckets=FOREST_BUCKETS,
+                                device_budget_bytes=2 * nbytes,
+                                metrics=metrics)
+        t0 = time.perf_counter()
+        reg.register(name, art, hot=False)
+        log(f"registry: {name} registered cold, host copy "
+            f"{'pinned ' if on_card else ''}in "
+            f"{time.perf_counter() - t0:.3f} s")
+        del art
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"registry: {nbytes} bytes ({nbytes / 1e9:.2f} GB) a model, device "
+        f"budget {2 * nbytes} bytes (two models)")
+    promote_s, drops = [], []
+    for name in ("A", "B", "C", "A"):
+        sync(device)
+        before = torch.cuda.memory_allocated(device) if on_card else 0
+        ev0 = reg.describe()
+        t0 = time.perf_counter()
+        reg.acquire(name)                 # no handle kept: none in flight
+        sync(device)                      # the promotion's copies are async
+        dt = time.perf_counter() - t0
+        after = torch.cuda.memory_allocated(device) if on_card else 0
+        ev1 = reg.describe()
+        promoted = ev1[name]["promotions"] - ev0[name]["promotions"]
+        demoted = [n for n in ev1
+                   if ev1[n]["demotions"] > ev0[n]["demotions"]]
+        if promoted != 1:
+            raise AssertionError(f"acquire {name}: not promoted")
+        promote_s.append(dt)
+        msg = f"acquire {name}: promoted in {dt!r} s"
+        if demoted:
+            # the promotion allocated at least nbytes: what the demotion
+            # freed is at least before + nbytes - after
+            drop = before + nbytes - after
+            drops.append(drop)
+            msg += (f", demoted {demoted}; memory_allocated {before} -> "
+                    f"{after}: the demotion freed >= {drop} bytes")
+            if on_card and drop < 0.95 * nbytes:
+                raise AssertionError(f"demotion of {demoted} freed {drop} "
+                                     f"bytes, < 0.95 x {nbytes}")
+        log(msg)
+    hot = reg.hot_names()
+    hot_sum = sum(artifacts_nbytes(reg.peek(n).artifacts) for n in hot)
+    gauge = metrics.gauge("registry_hot_bytes").get()
+    if hot != ["A", "C"] or gauge != hot_sum or hot_sum != 2 * nbytes:
+        raise AssertionError(f"hot set {hot}, registry_hot_bytes {gauge}, "
+                             f"leaf bytes {hot_sum}")
+    cold = reg.peek("B").artifacts
+    if on_card and not (cold.device.type == "cpu" and cold.leaf.is_pinned()
+                        and reg.peek("A").artifacts.device.type == "cuda"):
+        raise AssertionError("hot models not on the card or cold ones not "
+                             "in pinned host memory")
+    # a cold model still serves, on the card: its tensors are copied there
+    # for the call
+    forest_predict.launches = 0
+    Xc, _ = reg.peek("B").generate(64, seed=0)
+    tp_launches += forest_predict.launches
+    if not np.isfinite(Xc).all() or (on_card and forest_predict.launches
+                                     != N_T - 1):
+        raise AssertionError(f"cold B: {forest_predict.launches} launches")
+    log(f"cold B served 64 rows on {device.type}: "
+        f"{forest_predict.launches} tree_predict launches, still cold "
+        f"({reg.hot_names()} hot)")
+    d = reg.describe()
+    log(f"registry: hot {hot}, registry_hot_bytes {gauge} = summed tensor "
+        f"bytes of the hot models; events " + ", ".join(
+            f"{n}: {d[n]['promotions']} promotions / {d[n]['demotions']} "
+            "demotions" for n in sorted(d)))
+    out.update(model_bytes=nbytes, promote_s=promote_s,
+               demotion_freed_bytes=drops)
+
+    # -- scheduler: in-flight arm and drain arm ------------------------------
+    rng = np.random.default_rng(7)
+    sizes = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1,
+                         size=SERVE_REQUESTS)
+    prios = np.where(rng.random(SERVE_REQUESTS) < 2 / 3, "interactive",
+                     "bulk")
+    forest_predict.launches = 0
+    warm_s = reg.warmup("A")
+    tp_launches += forest_predict.launches
+    log(f"warmup of A (euler x buckets {FOREST_BUCKETS}): {warm_s!r} s, "
+        f"{forest_predict.launches} tree_predict launches")
+    Probe = _probe_scheduler()
+    handle = reg.peek("A")
+    runs = []
+    # the two arms in turns (ABBA): host-clock numbers move between runs
+    for arm, sync_resolve in (("inflight", False), ("drain", True),
+                              ("drain", True), ("inflight", False)):
+        tracer = Tracer(capacity=4096)
+        sched = Probe(reg, AdmissionController(), sync_resolve=sync_resolve,
+                      max_coalesce_rows=N_Y * FOREST_BUCKETS[-1],
+                      coalesce_window_s=0.002, tracer=tracer)
+        futs, lock = [], threading.Lock()
+
+        def client(part):
+            for n, pr in part:
+                f = sched.submit(int(n), model="A", sampler="euler",
+                                 priority=str(pr))
+                with lock:
+                    futs.append(f)
+
+        jobs = list(zip(sizes, prios))
+        threads = [threading.Thread(target=client,
+                                    args=(jobs[i::SERVE_CLIENTS],))
+                   for i in range(SERVE_CLIENTS)]
+        forest_predict.launches = 0
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for f in futs:
+            f.result(timeout=300)
+        wall = time.perf_counter() - t0
+        launches = forest_predict.launches
+        tp_launches += launches
+        sched.stop()
+        stats = sched.stats_snapshot()
+        replay_served(tracer, futs, [handle])
+        rows = int(sizes.sum())
+        queue = {s.trace_id: s.duration_s
+                 for s in tracer.spans(name="serve.queue")}
+        dev = tracer.spans(name="serve.device")
+        dev_of = {r: s.duration_s for s in dev for r in s.links}
+        shares = [queue[r] / (queue[r] + dev_of[r]) for r in queue]
+        per_batch = launches / max(stats["batches"], 1)
+        a = dict(rows=rows, wall_s=wall, rows_per_s=rows / wall,
+                 batches=stats["batches"],
+                 coalesced=stats["coalesced_requests"],
+                 queue_wait_median_s=_median(list(queue.values())),
+                 device_median_s=_median([s.duration_s for s in dev]),
+                 queue_share_median=_median(shares),
+                 queue_share_total=sum(queue.values()) / sum(
+                     queue[r] + dev_of[r] for r in queue),
+                 max_inflight=stats["max_inflight_observed"],
+                 tree_predict_per_batch=per_batch,
+                 copy_before_next=sched.copy_before_next,
+                 compared=sched.compared)
+        runs.append((arm, a))
+        log(f"scheduler {arm}: {len(futs)} requests, {rows} rows in "
+            f"{a['batches']} batches ({a['coalesced']} coalesced), "
+            f"{wall!r} s, {a['rows_per_s']!r} rows/s; median queue wait "
+            f"{a['queue_wait_median_s']!r} s, median device span "
+            f"{a['device_median_s']!r} s, queue wait a median "
+            f"{a['queue_share_median']!r} of a request's latency; peak "
+            f"{a['max_inflight']} in flight; {per_batch!r} tree_predict "
+            f"launches a batch; rows on the host while the next batch was "
+            f"still being enqueued or on the device: {a['copy_before_next']}"
+            f" of the {a['compared']} batches whose successor had begun; "
+            "every request bit-equal to the sample() replay of its batch")
+        if on_card and per_batch != N_T - 1:
+            raise AssertionError(f"{arm}: {per_batch} launches a batch")
+    # the CPU computes inside sample_async: only the card has two batches
+    # in flight
+    for arm, a in runs:
+        if (arm == "drain" and a["max_inflight"] > 1) or (
+                on_card and arm == "inflight" and a["max_inflight"] < 2):
+            raise AssertionError(f"{arm}: peak {a['max_inflight']} in flight")
+    for arm in ("inflight", "drain"):
+        mine = [a for k, a in runs if k == arm]
+        out[arm] = {key: [a[key] for a in mine] for key in mine[0]}
+    log("rows/s in turns (in-flight, drain, drain, in-flight): "
+        + ", ".join(f"{a['rows_per_s']!r}" for _, a in runs))
+
+    # -- swap A for A' (seed 3) under traffic --------------------------------
+    new = random_artifacts(cfg, N_Y, P, m, seed=3, device=device)
+    old_handle = reg.peek("A")
+    tracer = Tracer(capacity=4096)
+    sched = Probe(reg, AdmissionController(), tracer=tracer,
+                  max_coalesce_rows=N_Y * FOREST_BUCKETS[-1])
+    build_dirs = {k: sorted(os.listdir(build.build_dir(k)))
+                  for k in ("tree_predict", "hist", "flash_attention")
+                  if os.path.isdir(build.build_dir(k))}
+    cache0 = build.load.cache_info()
+    futs, errors, lock = [], [], threading.Lock()
+
+    def swap_client(part):
+        for n in part:
+            try:
+                f = sched.submit(int(n), model="A")
+                with lock:
+                    futs.append(f)
+            except Exception as exc:   # noqa: BLE001 — counted, then raised
+                errors.append(exc)
+            time.sleep(0.1)
+
+    swap_sizes = sizes[:SWAP_REQUESTS]
+    before_swap = swap_sizes[:SWAP_REQUESTS - 4]
+    forest_predict.launches = 0
+    threads = [threading.Thread(target=swap_client, args=(before_swap[i::2],))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    time.sleep(0.15)
+    t0 = time.perf_counter()
+    new_handle = reg.swap("A", new)
+    swap_s = time.perf_counter() - t0
+    t_swapped = time.monotonic()           # the spans' clock
+    del new
+    swap_client(swap_sizes[SWAP_REQUESTS - 4:])    # dispatched after it
+    for t in threads:
+        t.join(timeout=300)
+    for f in futs:
+        f.result(timeout=300)
+    sched.stop()
+    tp_launches += forest_predict.launches
+    if errors or len(futs) != SWAP_REQUESTS:
+        raise AssertionError(f"swap: {len(futs)} of {SWAP_REQUESTS} served, "
+                             f"errors {errors}")
+    matched = replay_served(tracer, futs, [old_handle, new_handle])
+    after = [s.attrs["batch_id"] for s in tracer.spans(name="serve.device")
+             if s.t_start > t_swapped]
+    if not after or any(matched[b] != 1 for b in after):
+        raise AssertionError(f"swap: batches dispatched after it {after} "
+                             f"matched {matched}")
+    cache1 = build.load.cache_info()
+    dirs1 = {k: sorted(os.listdir(build.build_dir(k))) for k in build_dirs}
+    if cache1 != cache0 or dirs1 != build_dirs:
+        raise AssertionError(f"swap built or loaded a kernel library: "
+                             f"{cache0} -> {cache1}")
+    log(f"swap A -> A' (seed 3) in {swap_s!r} s under traffic: "
+        f"{SWAP_REQUESTS} requests served, none dropped; "
+        f"{len(after)} batches dispatched after the swap replay bit-equal "
+        f"on A' ({sum(v == 0 for v in matched.values())} on A); "
+        f"build.load cache {cache1}, no library built or loaded")
+    out["swap"] = dict(swap_s=swap_s, requests=SWAP_REQUESTS,
+                       batches_after=len(after),
+                       version=new_handle.version)
+    del old_handle, handle
+
+    # -- HTTP ------------------------------------------------------------------
+    admission = AdmissionController(metrics=metrics)
+    monitor = ResourceMonitor(metrics, interval_s=60.0, admission=admission,
+                              registry=reg)
+    app = ServingApp(reg, admission, metrics=metrics,
+                     tracer=Tracer(capacity=4096), monitor=monitor,
+                     profiler=Profiler(os.path.join(tmp, "profiles")))
+    monitor.sample()
+    httpd, thread = serve_in_thread(app)
+    base = "http://%s:%d" % httpd.server_address[:2]
+    forest_predict.launches = 0
+    try:
+        calls = {}
+        t0 = time.perf_counter()
+        status, body = http_call("POST", f"{base}/v1/generate",
+                                 {"model": "A", "n": 1000})
+        calls["generate"] = (status, time.perf_counter() - t0)
+        X = np.asarray(body["rows"], np.float32)
+        if X.shape != (1000, P) or not np.isfinite(X).all():
+            raise AssertionError(f"/v1/generate: rows {X.shape}")
+        rid = body["request_id"]
+        Xm = np.where(np.random.default_rng(0).random((64, P)) < 0.5,
+                      np.nan, X[:64])
+        rows = [[None if np.isnan(v) else float(v) for v in r] for r in Xm]
+        t0 = time.perf_counter()
+        status, ibody = http_call("POST", f"{base}/v1/impute", {
+            "model": "A", "rows": rows, "labels": body["labels"][:64]})
+        calls["impute"] = (status, time.perf_counter() - t0)
+        filled = np.asarray(ibody.get("rows", []), np.float32)
+        obs = ~np.isnan(Xm)
+        if (filled.shape != (64, P) or not np.isfinite(filled).all()
+                or not np.array_equal(filled[obs], Xm[obs].astype(
+                    np.float32))):
+            raise AssertionError("/v1/impute: bad rows or observed cells "
+                                 "changed")
+        status, tbody = http_call("GET", f"{base}/v1/trace/{rid}")
+        calls["trace"] = (status, None)
+        if tbody.get("summary", {}).get("rows") != 1000:
+            raise AssertionError(f"/v1/trace: {tbody.get('summary')}")
+        status, text = http_call("GET", f"{base}/metrics")
+        calls["metrics"] = (status, None)
+        gauges = [g for g in ("resource_device_memory_bytes{",
+                              "resource_device_buffer_bytes{",
+                              "resource_kernel_libraries ")
+                  if g in text]
+        if on_card and len(gauges) != 3:
+            raise AssertionError(f"/metrics: device gauges {gauges}")
+        status, pbody = http_call("POST", f"{base}/debug/profile",
+                                  {"duration_ms": 200})
+        calls["profile"] = (status, None)
+        if not os.path.exists(pbody.get("trace", "")):
+            raise AssertionError(f"/debug/profile: no trace file {pbody}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.stop()
+        thread.join(timeout=30)
+    tp_launches += forest_predict.launches
+    if any(s != 200 for s, _ in calls.values()):
+        raise AssertionError(f"HTTP: {calls}")
+    log(f"HTTP on {base}: " + ", ".join(
+        f"{k} {s}" + (f" in {dt!r} s" if dt is not None else "")
+        for k, (s, dt) in calls.items())
+        + f"; resource gauges on /metrics: {gauges}; profiler trace "
+        f"{os.path.getsize(pbody['trace'])} bytes")
+    out["http"] = {k: dict(status=s, s=dt) for k, (s, dt) in calls.items()}
+    del reg, app, monitor
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- refresh: ingest -> train_forest -> serve_http -> refresh ----------
+    hist_launches, launches, refresh = drive_refresh(device, tmp)
+    tp_launches += launches
+    out["refresh"] = refresh
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"forest serving phase: {out['phase_s']!r} s")
+    return tp_launches, hist_launches, out
+
+
+def release_pinned() -> None:
+    """Hand the caching host allocator's free pinned blocks back (the
+    registry's host copies), where this PyTorch has the call."""
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+def http_call(method, url, body=None):
+    """(status, parsed JSON or text) of one request, error statuses too."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            raw, status, kind = (resp.read(), resp.status,
+                                 resp.headers.get("Content-Type"))
+    except urllib.error.HTTPError as err:
+        raw, status, kind = err.read(), err.code, err.headers.get(
+            "Content-Type")
+    if kind == "application/json":
+        return status, json.loads(raw)
+    return status, raw.decode()
+
+
+def drive_refresh(device, tmp):
+    """The refresh loop on a two-moons model (an extension at photons width
+    takes hours): ingest, train_forest, a serve_http plane, then refresh
+    appends, extends on the card and reloads while /v1/generate keeps
+    answering. Returns (hist launches, tree_predict launches, numbers)."""
+    from repro_torch.kernels.hist.ops import histogram
+    from repro_torch.kernels.tree_predict.ops import forest_predict
+    from repro_torch.launch import ingest as ingest_cli
+    from repro_torch.launch import refresh, train_forest
+    from repro_torch.launch.serve_http import ServingApp, serve_in_thread
+    from repro_torch.serving import AdmissionController, ModelRegistry
+    d = os.path.join(tmp, "refresh")
+    os.makedirs(d)
+    for name, seed in (("rows", 0), ("more", 1)):
+        X, y = two_moons(1200, seed=seed)
+        np.savez(os.path.join(d, f"{name}.npz"), X=X, y=y)
+    store, base, v2 = (os.path.join(d, k) for k in ("store", "v1", "v2"))
+    dev = "cuda" if device.type == "cuda" else "cpu"
+    histogram.launches = forest_predict.launches = 0
+    ingest_cli.main(["--out", store, "--npz", os.path.join(d, "rows.npz"),
+                     "--shard-rows", "512", "--batch-rows", "256"])
+    train_forest.main(["--data-dir", store, "--mesh", "none", "--device",
+                       dev, "--n-t", "5", "--duplicate-k", "6", "--n-trees",
+                       "8", "--max-depth", "3", "--n-bins", "16",
+                       "--out", base])
+    registry = ModelRegistry(device=device, buckets=(64, 256))
+    registry.register("moons", path=base)
+    app = ServingApp(registry, AdmissionController(),
+                     model_paths={"moons": base})
+    httpd, thread = serve_in_thread(app)
+    url = "http://%s:%d" % httpd.server_address[:2]
+    stop, codes = threading.Event(), []
+
+    def traffic():
+        while not stop.is_set():
+            codes.append(http_call("POST", f"{url}/v1/generate",
+                                   {"model": "moons", "n": 200})[0])
+
+    client = threading.Thread(target=traffic)
+    client.start()
+    try:
+        t0 = time.perf_counter()
+        summary = refresh.main([
+            "--store", store, "--artifacts", base, "--out", v2,
+            "--npz", os.path.join(d, "more.npz"), "--batch-rows", "256",
+            "--extra-trees", "3", "--device", dev, "--server", url,
+            "--model", "moons"])
+        wall = time.perf_counter() - t0
+        time.sleep(0.2)
+        status, models = http_call("GET", f"{url}/v1/models")
+    finally:
+        stop.set()
+        client.join(timeout=120)
+        httpd.shutdown()
+        httpd.server_close()
+        app.stop()
+        thread.join(timeout=30)
+    version = models["models"]["moons"]["version"]
+    hist_launches = histogram.launches
+    if (status != 200 or version != 2 or summary["served_version"] != 2
+            or not codes or set(codes) != {200}):
+        raise AssertionError(f"refresh: /v1/models {status} version "
+                             f"{version}, generate statuses {set(codes)}")
+    if device.type == "cuda" and hist_launches == 0:
+        raise AssertionError("refresh: no hist launch on the card")
+    log(f"refresh: ingest 1,200 rows, train_forest, serve, refresh "
+        f"(+{summary['rows_appended']} rows, {summary['n_trees']} trees) "
+        f"in {wall!r} s; /v1/models version {version}; {len(codes)} "
+        f"/v1/generate calls across the swap, all 200; {hist_launches} "
+        "hist launches")
+    return hist_launches, forest_predict.launches, dict(
+        wall_s=wall, version=version, generates=len(codes),
+        hist_launches=hist_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -1283,6 +1838,13 @@ def main() -> int:
     del flow
     torch.cuda.empty_cache()
 
+    # -- the forest serving plane -------------------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        fs_tp, fs_hist, forest_serving = drive_forest_serving(device, tmp)
+    release_pinned()
+    torch.cuda.empty_cache()
+
     # -- the training path -------------------------------------------------
     forest_predict.launches = histogram.launches = flash_attention.launches = 0
     with tempfile.TemporaryDirectory() as ckpt_root:
@@ -1311,14 +1873,14 @@ def main() -> int:
         "name": "tree_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
         "replaces": "src/repro/kernels/tree_predict/tree_kernel.py:54",
-        "launches": sum(counts.values()), "max_abs_err": worst,
+        "launches": sum(counts.values()) + fs_tp, "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
         "name": "hist", "route": "cuda",
         "source": "src/repro_torch/kernels/hist/csrc/hist.cu",
         "replaces": "src/repro/kernels/hist/hist_kernel.py:52",
-        "launches": hist_launches, "max_abs_err": hist_worst,
+        "launches": hist_launches + fs_hist, "max_abs_err": hist_worst,
         "ms": ht["ms"], "plain_ms": ht["plain_ms"],
         "bound_ms": ht["bound_ms"], "bound_by": ht["bound_by"],
         "library_ms": None}, {
@@ -1348,7 +1910,10 @@ def main() -> int:
                           source="src/repro_torch/kernels/flash_attention/"
                                  "csrc/flash_attention_bf16.cuh",
                           sass=sass),
-                      "serving": serving}))
+                      "serving": serving,
+                      "forest_serving": dict(
+                          forest_serving, tree_predict_launches=fs_tp,
+                          hist_launches=fs_hist)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Synthetic tabular datasets for resource-scaling runs (paper §4.1,
-App. D.1): a numpy-only copy of the part of ``repro.data.tabular`` that the
-port's ingest and training CLIs draw from, row for row the same.
+App. D.1) and the serving demos' two-moons: a numpy-only copy of the part
+of ``repro.data.tabular`` that the port's CLIs draw from, row for row the
+same.
 
 The ``*_batches`` variant streams the same family as bounded row batches
 for :func:`repro_torch.data.store.ingest` and the out-of-core benchmarks: batch
@@ -35,3 +36,17 @@ def synthetic_resource_batches(n: int, p: int, n_y: int, *,
         X = rng.normal(size=(rows, p)).astype(np.float32)
         y = rng.integers(0, n_y, size=rows).astype(np.int64)
         yield X, y
+
+
+def two_moons(n: int, noise: float = 0.08, seed: int = 0):
+    """Two interleaved half circles with noise: the JAX package's toy
+    dataset, row for row."""
+    rng = np.random.default_rng(seed)
+    n2 = n // 2
+    t = np.pi * rng.random(n2)
+    a = np.stack([np.cos(t), np.sin(t)], 1)
+    b = np.stack([1 - np.cos(t), 0.5 - np.sin(t)], 1)
+    X = np.concatenate([a, b]) + noise * rng.normal(size=(2 * n2, 2))
+    y = np.concatenate([np.zeros(n2), np.ones(n2)]).astype(np.int64)
+    perm = rng.permutation(len(X))
+    return X[perm].astype(np.float32), y[perm]

@@ -12,6 +12,12 @@ PyTorch path.
 
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 all of them, so building every kernel takes as long as the slowest one.
+
+Threads share one lock over building and loading: two threads that reach a
+kernel first at the same moment (an HTTP thread imputing while the serving
+scheduler dispatches) build it once, and the second loads what the first
+built. Temp files carry the process and thread id besides. The wrappers
+count their launches through :func:`count_launch`, under a lock of its own.
 """
 from __future__ import annotations
 
@@ -21,9 +27,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
+# one lock over build() and load(): a kernel builds once per process
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,6 +85,11 @@ def build(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
     -v``'s registers and shared memory per kernel, and is empty when the
     library was already built.
     """
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
     done, running = {}, {}
     for name in names:
         lib = library_path(name)
@@ -82,7 +97,7 @@ def build(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
             done[name] = (lib, "")
             continue
         os.makedirs(build_dir(name), exist_ok=True)
-        tmp = f"{lib}.{os.getpid()}.tmp"
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -101,16 +116,38 @@ def build(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
     return done
 
 
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built library of kernel ``name`` (built first if needed), with
-    ``<name>_error_string`` declared. Each wrapper declares its own launch
-    functions' ``argtypes``."""
-    lib = ctypes.CDLL(build([name])[name][0])
+def open_library(path: str, name: str) -> ctypes.CDLL:
+    """Load a built library of kernel ``name`` and declare its
+    ``<name>_error_string``."""
+    lib = ctypes.CDLL(path)
     fn = getattr(lib, f"{name}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
+    return open_library(build([name])[name][0], name)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of kernel ``name`` (built first if needed), with
+    ``<name>_error_string`` declared. Each wrapper declares its own launch
+    functions' ``argtypes``. ``load.cache_info()`` counts the libraries
+    loaded (misses) and the calls that found one (hits)."""
+    with _BUILD_LOCK:
+        return _load(name)
+
+
+load.cache_info = _load.cache_info
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel's
+    wrapper, under a lock: the wrappers are called from many threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check_launch(name: str, rc: int) -> None:

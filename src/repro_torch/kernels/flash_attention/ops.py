@@ -68,7 +68,7 @@ def flash_attention(q, k, v, causal: bool = True):
         return attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention path for device {q.device}")
-    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.build import check_launch, count_launch
     lib = _lib()
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
@@ -83,7 +83,7 @@ def flash_attention(q, k, v, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             q.element_size(), b, hq, hkv, sq, skv, d, int(causal), stream)
     check_launch("flash_attention", rc)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return o
 
 

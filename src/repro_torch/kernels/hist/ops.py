@@ -305,7 +305,8 @@ def histogram(codes, node_id, g, w, n_nodes: int, n_bins: int):
     if g.device.type != "cuda":
         raise ValueError(f"no hist path for device {g.device}")
     out = launch(_lib(), codes, node_id, g, w, n_nodes, n_bins)
-    histogram.launches += 1
+    from repro_torch.kernels.build import count_launch
+    count_launch(histogram)
     return out
 
 

@@ -112,7 +112,8 @@ def forest_predict(x, feat, thr_val, leaf, depth: int):
         raise ValueError(f"no tree_predict path for device {x.device}")
     y = launch(_lib(), x, feat, thr_val, leaf, depth)
     if y.numel():
-        forest_predict.launches += 1
+        from repro_torch.kernels.build import count_launch
+        count_launch(forest_predict)
     return y
 
 

@@ -1,4 +1,5 @@
-"""repro_torch.obs — metrics, exposition and span tracing for the port.
+"""repro_torch.obs — metrics, exposition, span tracing and resource
+telemetry for the port.
 
 Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
 
@@ -9,15 +10,24 @@ Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
   (:func:`render_prometheus`), dumped offline by
   ``repro_torch.launch.metrics``.
 * :mod:`repro_torch.obs.tracing` — ring-buffered :class:`Tracer` spans
-  threaded through the fit pipeline and ``DatasetStore`` ingest, with
-  optional JSONL export and ``torch.profiler`` annotations
-  (``REPRO_OBS_TORCH_TRACE=1``).
+  threaded through the serving hot path, the fit pipeline and
+  ``DatasetStore`` ingest, with optional JSONL export and
+  ``torch.profiler`` annotations (``REPRO_OBS_TORCH_TRACE=1``).
 
-The JAX package's resource monitor and profiler captures belong to its
-serving plane, which the port has not reached yet.
+and two with torch probes of their own:
 
-Offline single-pipeline processes (``train_forest``, ``ingest``) use the
-process-wide defaults below, which ``repro_torch.launch.metrics`` dumps.
+* :mod:`repro_torch.obs.resources` — :class:`ResourceMonitor`, a
+  background sampler publishing ``resource_*`` gauges (RSS, CUDA
+  allocator bytes, kernel libraries loaded, queue depths, hot-model
+  bytes).
+* :mod:`repro_torch.obs.profiling` — :class:`Profiler`, serialized bounded
+  ``torch.profiler`` captures behind ``POST /debug/profile``.
+
+Serving components (scheduler / admission / model registry) each default
+to a private registry+tracer; ``serve_http`` wires one shared pair through
+all of them. Offline single-pipeline processes (``train_forest``,
+``ingest``) use the process-wide defaults below, which
+``repro_torch.launch.metrics`` dumps.
 """
 from __future__ import annotations
 
@@ -31,6 +41,8 @@ from repro_torch.obs.metrics import (
     Histogram,
     MetricsRegistry,
 )
+from repro_torch.obs.profiling import ProfileInProgress, Profiler
+from repro_torch.obs.resources import ResourceMonitor
 from repro_torch.obs.tracing import SlowLog, Span, Tracer
 
 __all__ = [
@@ -40,6 +52,9 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "ProfileInProgress",
+    "Profiler",
+    "ResourceMonitor",
     "SlowLog",
     "Span",
     "Tracer",

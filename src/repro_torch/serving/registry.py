@@ -1,0 +1,398 @@
+"""ModelRegistry: many named :class:`ForestArtifacts` hot in one process.
+
+The port's twin of the JAX package's ``repro.serving.registry``. The
+registry keeps a name -> model table with:
+
+* **LRU device placement under a byte budget** — "hot" models have their
+  tensors on the registry's device; cold models keep only their canonical
+  host copy and cost no device memory. The host copy is made once, at
+  registration, in pinned memory (on a CUDA registry), so a promotion is
+  one asynchronous host-to-device copy per tensor
+  (``ForestArtifacts.to(device, non_blocking=True)``) and a demotion drops
+  the device tensors (the host copy is already there). When the hot set
+  would exceed ``device_budget_bytes`` (or ``max_hot``), the
+  least-recently-used hot models are demoted.
+* **Immutable dispatch snapshots** — ``acquire()`` returns a
+  :class:`ModelHandle`, a frozen (artifacts, schema, samplers, version)
+  view. A batch dispatched against a handle keeps those exact tensors
+  alive until it resolves, whatever the registry does meanwhile: a
+  demotion frees a model's device memory only once no handle of it is in
+  flight.
+* **Zero-downtime swap** — ``swap(name, artifacts)`` builds and places the
+  new version first, then flips the table pointer under the lock. In-flight
+  batches finish on the old tensors (their handle still references them);
+  every later dispatch sees the new ones. No request is ever dropped.
+
+The port compiles nothing at run time: the kernels are libraries built and
+loaded once per process, and a swapped-in model of any shape launches the
+same ones. A swap costs one device placement.
+
+Sharded serving (``mesh=``) is not ported: it waits on sharded sampling
+(``ROADMAP.md``, Queue 1, item 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.dispatch import Device, resolve_device
+from repro_torch.obs import MetricsRegistry
+from repro_torch.tabgen import TabularGenerator, default_sampler
+from repro_torch.tabgen.artifacts import _TENSOR_FIELDS, ForestArtifacts
+from repro_torch.tabgen.sampling import sample_labels
+
+DEFAULT_BUCKETS = (64, 256, 1024)
+
+
+class UnknownModel(KeyError):
+    """Request named a model the registry doesn't hold (HTTP: 404)."""
+
+
+def artifacts_nbytes(artifacts: ForestArtifacts) -> int:
+    """Device footprint of one model = sum of its tensors' bytes."""
+    return int(sum(getattr(artifacts, f).numel()
+                   * getattr(artifacts, f).element_size()
+                   for f in _TENSOR_FIELDS))
+
+
+def _host_copy(artifacts: ForestArtifacts, device: torch.device
+               ) -> ForestArtifacts:
+    """The canonical host copy a registry keeps of a model: pinned when
+    the registry serves from a CUDA device, plain CPU tensors otherwise."""
+    if device.type == "cuda":
+        return artifacts.pin_memory()
+    return artifacts.to("cpu")
+
+
+def _place(host: ForestArtifacts, device: torch.device) -> ForestArtifacts:
+    """Promote: the one-time placement a cold model pays on first use."""
+    if device.type == "cpu":
+        return host
+    return host.to(device, non_blocking=True)
+
+
+class ModelHandle:
+    """Immutable dispatch snapshot of one registered model version.
+
+    Everything the scheduler needs for a batch: the facade (schema decode),
+    the served sampler set, and the bucket policy. Handles are never
+    mutated — ``swap`` and promotion build new ones — so an in-flight
+    batch's view of the model cannot change underneath it. A cold handle
+    (host tensors on a CUDA registry) still serves: each call copies the
+    model to ``device`` for that call only.
+    """
+
+    def __init__(self, name: str, artifacts: ForestArtifacts, *,
+                 device: Device, schema=None, samplers: Sequence[str] = (),
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, version: int = 1):
+        cfg = artifacts.config
+        self.name = name
+        self.artifacts = artifacts
+        self.device = torch.device(device)
+        self.schema = schema
+        self.version = version
+        self.samplers = tuple(samplers) or (
+            default_sampler(cfg.method, cfg.diff_sampler),)
+        self.buckets = tuple(sorted(buckets))
+        self.nbytes = artifacts_nbytes(artifacts)
+        # requests delegate to the facade so serving output can never
+        # diverge from TabularGenerator's (schema decode, impute masking)
+        self._gen = TabularGenerator(cfg, schema=schema)
+        self._gen.artifacts = artifacts
+
+    def _generator(self) -> TabularGenerator:
+        if self.artifacts.device == self.device:
+            return self._gen
+        gen = TabularGenerator(self.artifacts.config, schema=self.schema)
+        gen.artifacts = self.artifacts.to(self.device)
+        return gen
+
+    # -- dispatch ------------------------------------------------------------
+
+    def bucket(self, n: int, seed: int) -> int:
+        """Smallest bucket covering the largest per-class slice of an
+        ``n``-row request. Exact: replays the (cheap, deterministic) label
+        draw that ``sample`` will make for this (n, seed)."""
+        rng = np.random.default_rng(seed)
+        label_idx = sample_labels(np.asarray(self.artifacts.counts), n, rng,
+                                  self.artifacts.config.label_sampler)
+        worst = int(np.bincount(label_idx,
+                                minlength=self.artifacts.n_y).max())
+        for b in self.buckets:
+            if b >= worst:
+                return b
+        return worst  # oversize request: exact size
+
+    def generate_async(self, n: int, sampler: str, *, seed: int,
+                       pad_to: Optional[int] = None):
+        """Non-blocking dispatch; the scheduler's waiter resolves it."""
+        return self._generator().generate_async(
+            n, sampler=sampler, seed=seed,
+            pad_to=self.bucket(n, seed) if pad_to is None else pad_to)
+
+    def generate(self, n: int, sampler: Optional[str] = None, *,
+                 seed: int = 0, pad_to: Optional[int] = None):
+        return self.generate_async(n, sampler or self.samplers[0],
+                                   seed=seed, pad_to=pad_to).result()
+
+    def impute(self, X_missing, y=None, *, seed: int = 0,
+               refine_rounds: int = 3) -> np.ndarray:
+        return self._generator().impute(X_missing, y, seed=seed,
+                                        refine_rounds=refine_rounds)
+
+    def warmup(self) -> float:
+        """Run every (sampler, bucket) once: loads the kernel libraries and
+        primes the caching allocators. Returns wall seconds."""
+        t0 = time.time()
+        total = int(np.asarray(self.artifacts.counts).sum())
+        for name in self.samplers:
+            for b in self.buckets:
+                self.generate(max(min(b, total), 1), name, seed=0, pad_to=b)
+        return time.time() - t0
+
+
+@dataclasses.dataclass
+class _Entry:
+    handle: ModelHandle
+    host_artifacts: ForestArtifacts   # canonical host copy (survives demote)
+    hot: bool
+    last_used: int
+
+
+#: lifecycle events tracked per model in ``registry_model_events_total``
+_EVENTS = ("acquires", "promotions", "demotions", "swaps")
+
+
+class ModelRegistry:
+    """Thread-safe name -> model table with LRU device placement.
+
+    ``device`` is where hot models live and every request runs (``None``:
+    the GPU, or raise; ``"cpu"`` runs the plain PyTorch path).
+    ``device_budget_bytes`` caps the summed tensor bytes of hot models
+    (``None`` = unbounded); ``max_hot`` caps their count. ``buckets`` is
+    the registry-wide default applied to every handle.
+
+    Promotion happens inside ``acquire`` under the registry lock — a cold
+    model's first request pays the placement (and any LRU demotions) before
+    dispatch, which is the explicit cost model: hot models never pay it.
+    """
+
+    def __init__(self, *, device: Optional[Device] = None, mesh=None,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 device_budget_bytes: Optional[int] = None,
+                 max_hot: Optional[int] = None,
+                 metrics: Optional[MetricsRegistry] = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh=) is not ported: it waits on sharded "
+                "sampling, ROADMAP.md Queue 1, item 1")
+        self.device = resolve_device(device)
+        self.buckets = tuple(sorted(buckets))
+        self.device_budget_bytes = device_budget_bytes
+        self.max_hot = max_hot
+        self._lock = threading.RLock()
+        self._entries: Dict[str, _Entry] = {}
+        self._seq = 0
+        self.metrics = metrics or MetricsRegistry()
+        self._m_events = self.metrics.counter(
+            "registry_model_events", "Model lifecycle events (acquires / "
+            "promotions / demotions / swaps)", ("model", "event"))
+        self._m_hot_bytes = self.metrics.gauge(
+            "registry_hot_bytes", "Summed tensor bytes of device-placed "
+            "(hot) models")
+        self._m_hot_models = self.metrics.gauge(
+            "registry_hot_models", "Models currently device-placed")
+        self._m_models = self.metrics.gauge(
+            "registry_models", "Models registered (hot or cold)")
+        self._sync_gauges_locked()
+
+    # -- internals (call with the lock held) ---------------------------------
+
+    def _tick(self) -> int:
+        self._seq += 1
+        return self._seq
+
+    def _hot_bytes(self) -> int:
+        return sum(e.handle.nbytes for e in self._entries.values() if e.hot)
+
+    def _hot_count(self) -> int:
+        return sum(1 for e in self._entries.values() if e.hot)
+
+    def _demote_lru(self, keep: str) -> None:
+        """Demote least-recently-used hot entries until the budget holds.
+        ``keep`` (the entry being promoted/registered) is never demoted —
+        a model larger than the whole budget still gets to serve."""
+        def over():
+            if (self.device_budget_bytes is not None
+                    and self._hot_bytes() > self.device_budget_bytes):
+                return True
+            return self.max_hot is not None and self._hot_count() > self.max_hot
+
+        while over():
+            victims = [(e.last_used, n) for n, e in self._entries.items()
+                       if e.hot and n != keep]
+            if not victims:
+                break
+            _, name = min(victims)
+            entry = self._entries[name]
+            entry.handle = self._build_handle(
+                name, entry.host_artifacts, entry.handle, hot=False)
+            entry.hot = False
+            self._m_events.inc(1, model=name, event="demotions")
+
+    def _sync_gauges_locked(self) -> None:
+        """Mirror the hot set into gauges (caller holds the lock, so the
+        gauges can never drift from the table they describe)."""
+        self._m_hot_bytes.set(self._hot_bytes())
+        self._m_hot_models.set(self._hot_count())
+        self._m_models.set(len(self._entries))
+
+    def _build_handle(self, name: str, host_artifacts: ForestArtifacts,
+                      like: ModelHandle, *, hot: bool,
+                      version: Optional[int] = None) -> ModelHandle:
+        arts = _place(host_artifacts, self.device) if hot else host_artifacts
+        return ModelHandle(
+            name, arts, device=self.device, schema=like.schema,
+            samplers=like.samplers, buckets=like.buckets,
+            version=like.version if version is None else version)
+
+    # -- public API ----------------------------------------------------------
+
+    def register(self, name: str, artifacts: Optional[ForestArtifacts] = None,
+                 *, path: Optional[str] = None, schema=None,
+                 samplers: Sequence[str] = (),
+                 buckets: Optional[Sequence[int]] = None,
+                 hot: bool = True) -> ModelHandle:
+        """Add (or replace) a model. ``path`` loads a saved
+        ``TabularGenerator`` artifact pair (schema rides along); ``hot``
+        places it on the device immediately (evicting LRU models per
+        budget), else it stays cold until first use."""
+        if artifacts is None:
+            if path is None:
+                raise ValueError("register() needs artifacts or path=")
+            gen = TabularGenerator.load(path, device="cpu")
+            artifacts, schema = gen.artifacts, gen.schema
+        host = _host_copy(artifacts, self.device)
+        seed_handle = ModelHandle(
+            name, host, device=self.device, schema=schema, samplers=samplers,
+            buckets=buckets or self.buckets)
+        with self._lock:
+            handle = self._build_handle(name, host, seed_handle, hot=hot)
+            self._entries[name] = _Entry(
+                handle=handle, host_artifacts=host, hot=hot,
+                last_used=self._tick())
+            # re-registering a name wipes its event counters; scrapers see
+            # a normal counter reset
+            self._m_events.reset(model=name)
+            if hot:
+                self._demote_lru(keep=name)
+            self._sync_gauges_locked()
+            return handle
+
+    def swap(self, name: str, artifacts: ForestArtifacts, *,
+             schema=None, keep_schema: bool = True) -> ModelHandle:
+        """Zero-downtime replace: the new version is built (and device-
+        placed, when the entry is hot) *before* the table pointer flips, so
+        there is no window where the name is unservable. In-flight batches
+        hold the old handle and finish on the old tensors."""
+        host = _host_copy(artifacts, self.device)
+        with self._lock:
+            entry = self._entries.get(name)
+            if entry is None:
+                raise UnknownModel(name)
+            old = entry.handle
+            seed_handle = ModelHandle(
+                name, host, device=self.device,
+                schema=old.schema if keep_schema else schema,
+                samplers=old.samplers, buckets=old.buckets)
+            entry.handle = self._build_handle(
+                name, host, seed_handle, hot=entry.hot,
+                version=old.version + 1)
+            entry.host_artifacts = host
+            entry.last_used = self._tick()
+            self._m_events.inc(1, model=name, event="swaps")
+            if entry.hot:
+                self._demote_lru(keep=name)
+            self._sync_gauges_locked()
+            return entry.handle
+
+    def acquire(self, name: str) -> ModelHandle:
+        """Dispatch-time lookup: promote if cold (LRU-evicting under the
+        budget), bump recency, return the immutable handle."""
+        with self._lock:
+            entry = self._entries.get(name)
+            if entry is None:
+                raise UnknownModel(name)
+            if not entry.hot:
+                entry.handle = self._build_handle(
+                    name, entry.host_artifacts, entry.handle, hot=True)
+                entry.hot = True
+                self._m_events.inc(1, model=name, event="promotions")
+                self._demote_lru(keep=name)
+                self._sync_gauges_locked()
+            entry.last_used = self._tick()
+            self._m_events.inc(1, model=name, event="acquires")
+            return entry.handle
+
+    def peek(self, name: str) -> ModelHandle:
+        """Lookup without promotion or recency bump (request validation)."""
+        with self._lock:
+            entry = self._entries.get(name)
+            if entry is None:
+                raise UnknownModel(name)
+            return entry.handle
+
+    def warmup(self, name: Optional[str] = None) -> float:
+        """Run every (sampler, bucket) of one model (or all) once."""
+        names = [name] if name is not None else self.names()
+        return sum(self.acquire(n).warmup() for n in names)
+
+    def names(self):
+        with self._lock:
+            return sorted(self._entries)
+
+    def hot_names(self):
+        with self._lock:
+            return sorted(n for n, e in self._entries.items() if e.hot)
+
+    def hot_bytes(self) -> int:
+        """Device-placed model bytes right now (the ResourceMonitor's
+        ``resource_hot_model_bytes`` source)."""
+        with self._lock:
+            return self._hot_bytes()
+
+    def describe(self) -> dict:
+        """Per-model status for ``/v1/models`` and ``/statz``. Event
+        counts are a view over ``registry_model_events_total`` — the same
+        series ``GET /metrics`` exports."""
+        with self._lock:
+            events = self._m_events.series()   # (model, event) -> n
+            return {
+                name: {
+                    "hot": e.hot,
+                    "nbytes": e.handle.nbytes,
+                    "version": e.handle.version,
+                    "samplers": list(e.handle.samplers),
+                    "buckets": list(e.handle.buckets),
+                    "n_features": e.handle.artifacts.p,
+                    "n_classes": e.handle.artifacts.n_y,
+                    # data provenance (rows / store fingerprint+version at
+                    # fit time, base round range) — how an operator spots a
+                    # stale model-vs-store pairing before/after a swap
+                    "lineage": e.host_artifacts.lineage,
+                    **{ev: int(events.get((name, ev), 0))
+                       for ev in _EVENTS},
+                }
+                for name, e in self._entries.items()}
+
+    def stats_snapshot(self) -> dict:
+        with self._lock:
+            return {"models": self.describe(),
+                    "hot_bytes": self._hot_bytes(),
+                    "device_budget_bytes": self.device_budget_bytes,
+                    "max_hot": self.max_hot}

@@ -158,10 +158,23 @@ class ForestArtifacts:
         return artifacts_from_numpy(arrays, dataclasses.asdict(config),
                                     device)
 
-    def to(self, device: Device) -> "ForestArtifacts":
-        """The same model with every tensor on ``device``."""
+    def to(self, device: Device, *, non_blocking: bool = False
+           ) -> "ForestArtifacts":
+        """The same model with every tensor on ``device``. From pinned host
+        memory, ``non_blocking=True`` enqueues the copies and returns."""
         return dataclasses.replace(self, **{
-            f: getattr(self, f).to(device) for f in _TENSOR_FIELDS})
+            f: getattr(self, f).to(device, non_blocking=non_blocking)
+            for f in _TENSOR_FIELDS})
+
+    def pin_memory(self) -> "ForestArtifacts":
+        """The same model with every tensor in pinned host memory (one
+        copy, from the host or a device), so that a later ``to("cuda",
+        non_blocking=True)`` is one asynchronous copy at the link's rate."""
+        def pinned(t):
+            return torch.empty(t.shape, dtype=t.dtype,
+                               pin_memory=True).copy_(t)
+        return dataclasses.replace(self, **{
+            f: pinned(getattr(self, f)) for f in _TENSOR_FIELDS})
 
     # -- persistence --------------------------------------------------------
 

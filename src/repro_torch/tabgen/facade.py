@@ -33,7 +33,10 @@ from repro_torch.tabgen.sampling import sample_async as _sample_async
 
 
 class _DecodingHandle:
-    """Schema-aware wrapper over an in-flight sample: decode on resolve."""
+    """Schema-aware wrapper over an in-flight sample: decode on resolve.
+    Trace context (``tag`` / ``batch_id`` / ``trace_ids``) and the copy's
+    ``ready`` event pass through to the wrapped
+    :class:`~repro_torch.tabgen.sampling.SampleHandle`."""
 
     def __init__(self, handle, schema: TabularSchema):
         self._handle = handle
@@ -42,6 +45,22 @@ class _DecodingHandle:
     def result(self):
         X, y = self._handle.result()
         return self._schema.decode(X), y
+
+    def tag(self, **kwargs):
+        self._handle.tag(**kwargs)
+        return self
+
+    @property
+    def batch_id(self):
+        return self._handle.batch_id
+
+    @property
+    def trace_ids(self):
+        return self._handle.trace_ids
+
+    @property
+    def ready(self):
+        return self._handle.ready
 
 
 class TabularGenerator:

@@ -15,11 +15,16 @@ prefix-stable. The JAX package draws per row with ``fold_in``; the two give
 different numbers, and the parity tests hand both the same x1.
 
 :func:`sample_async` only enqueues device work; :meth:`SampleHandle.result`
-is where the host waits.
+is where the host waits. On a CUDA device :func:`sample_async` also
+enqueues the copy of the samples into pinned host memory, on the stream
+that ran the solve, and records an event behind it: ``result()`` waits for
+that event only. A serving thread that resolves batch k while another
+thread has already enqueued batch k+1 therefore does not wait for batch
+k+1's device work.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,23 +104,55 @@ def _resolve_sampler(fcfg, sampler: Optional[str]):
 
 class SampleHandle:
     """An in-flight :func:`sample`: device work enqueued, host finish
-    deferred. ``result()`` copies the ``[n_y, m, p]`` samples to the host
-    (waiting for the device), unpads and shuffles them exactly as the
-    synchronous path does."""
+    deferred. ``result()`` waits for the ``[n_y, m, p]`` samples to reach
+    the host, then unpads and shuffles them exactly as the synchronous path
+    does.
 
-    def __init__(self, x_dev, per_class, classes, rng):
-        self._x_dev = x_dev
+    ``x`` is the samples on the CPU, or a pinned host tensor that a copy
+    from the device is filling; ``ready`` is then the CUDA event recorded
+    behind that copy, and ``result()`` waits on it and on nothing else.
+    """
+
+    def __init__(self, x, per_class, classes, rng, ready=None):
+        self._x = x
         self._per_class = per_class
         self._classes = classes
         self._rng = rng
+        self.ready = ready
+        # trace context, stamped by the serving scheduler via tag(): which
+        # coalesced batch this dispatch is, and which request traces ride it
+        self.batch_id: Optional[int] = None
+        self.trace_ids: Tuple[str, ...] = ()
+
+    def tag(self, *, batch_id: Optional[int] = None,
+            trace_ids: Sequence[str] = ()) -> "SampleHandle":
+        """Attach serving trace context (metadata, never read by the
+        sampling math). Returns self."""
+        self.batch_id = batch_id
+        self.trace_ids = tuple(trace_ids)
+        return self
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
-        x_all = self._x_dev.cpu().numpy()           # waits: [n_y, m, p]
+        if self.ready is not None:
+            self.ready.synchronize()                # this batch's copy only
+        x_all = self._x.cpu().numpy()               # [n_y, m, p]
         X = np.concatenate([x_all[yi, :c]
                             for yi, c in enumerate(self._per_class)])
         y = np.repeat(self._classes, self._per_class)
         perm = self._rng.permutation(len(X))
         return X[perm], y[perm]
+
+
+def _copy_to_host(x: torch.Tensor):
+    """``(pinned host tensor, event)``: the device-to-host copy of ``x``
+    enqueued on the current stream, which ran the solve, and an event
+    recorded behind it. The caching host allocator reuses the pinned
+    buffers."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(x.device))
+    return host, ready
 
 
 def sample_async(artifacts: ForestArtifacts, n: int, *,
@@ -150,7 +187,11 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
         artifacts.mins, artifacts.maxs, ts, solver_fn=spec.fn,
         depth=fcfg.max_depth, n_t=fcfg.n_t, multi_output=fcfg.multi_output,
         eps=fcfg.eps_diff, generator=generator)
-    return SampleHandle(x_all, per_class, np.asarray(artifacts.classes), rng)
+    ready = None
+    if device.type == "cuda":
+        x_all, ready = _copy_to_host(x_all)
+    return SampleHandle(x_all, per_class, np.asarray(artifacts.classes), rng,
+                        ready)
 
 
 def sample(artifacts: ForestArtifacts, n: int, *,

@@ -4,7 +4,7 @@ asked for the CPU.
 * No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of the JAX package ``repro``.
 * Importing the port's entry points loads neither.
-* Entry points (loading, sampling, training and LM serving) given
+* Entry points (loading, sampling, training, LM and forest serving) given
   ``device=None`` take the GPU and raise where there is none;
   ``device="cpu"`` runs the plain PyTorch path.
 """
@@ -63,7 +63,10 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.kernels.flash_attention.ops, "
             "repro_torch.data.store, repro_torch.forest.distributed, "
             "repro_torch.launch.mesh, repro_torch.launch.ingest, "
-            "repro_torch.launch.train_forest, repro_torch.obs;"
+            "repro_torch.launch.train_forest, repro_torch.obs, "
+            "repro_torch.serving, repro_torch.launch.serve_http, "
+            "repro_torch.launch.serve_forest, repro_torch.launch.refresh, "
+            "repro_torch.launch.metrics;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -173,6 +176,32 @@ def test_lm_serving_defaults_to_gpu_and_raises_without_one(monkeypatch):
     tokens, _ = serve_batch(cfg, params, prompts, 2, cache_size=5)
     assert tokens.shape == (1, 2)
     assert params.embed.tokens.device == torch.device("cpu")
+
+
+def test_forest_serving_defaults_to_gpu_and_raises_without_one(
+        monkeypatch, tmp_path):
+    """The registry, the single-model server and the serving CLIs take the
+    GPU unless asked for the CPU."""
+    from repro_torch.launch import refresh, serve_forest, serve_http
+    from repro_torch.serving import ModelRegistry
+    base = _tiny_model_files(tmp_path)
+    art = TabularGenerator.load(base, device="cpu").artifacts
+    monkeypatch.setattr(dispatch.torch.cuda, "is_available", lambda: False)
+    for call in (lambda: ModelRegistry(),
+                 lambda: serve_forest.ForestServer(art),
+                 lambda: serve_forest.ForestServer.from_path(base),
+                 lambda: serve_forest.main(["--artifacts", base]),
+                 lambda: serve_http.main(["--model", f"m={base}"]),
+                 lambda: refresh.main(["--store", str(tmp_path),
+                                       "--artifacts", base, "--out",
+                                       str(tmp_path / "v2"),
+                                       "--extra-trees", "1"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    server = serve_forest.ForestServer(art, device="cpu", buckets=(8,))
+    X, _ = server.generate(6, seed=0)
+    assert X.shape == (6, 3)
+    assert server.registry.device == torch.device("cpu")
 
 
 def test_gpu_is_the_default_device_where_present(monkeypatch):
