@@ -11,14 +11,17 @@
    the shapes the generation path gives it (MO and SO at CaloForest photons
    width, the latency shapes, pions width, odd row counts, +inf sentinels
    and threshold ties) and at the kernels' edges (depth 1, 8, 9 and 16, 400
-   and 512 trees), bit for bit (both sum the trees in the same order);
+   and 512 trees) and at phase 12's (depth 4, T=15, p=2, 3, 6, SO and MO),
+   bit for bit (both sum the trees in the same order);
    times kernel and plain version at MO and SO full width, MO at n=1,024
    and 4,096 a class and pions width.
 4. Holds ``hist`` against its plain version: bit for bit against the plain
    version on the CPU (odd n, int8/int16/int32 codes with zero weights,
    SO lanes, and the kernel's edges: every row in one bin, a node over many
    chunks, codes outside [0, n_bins), 1 and 16 bins, 368 SO lanes at a
-   small n, nodes without rows), and within 1e-5 of each cell's sum of
+   small n, nodes without rows; phase 12's fits at 32 bins: p=8 at 5,210,
+   52,000 and 520,000 rows with out=1 S=1, S=8 and out=8, the quality
+   table's p=2, 3, 6, their leaf sums), and within 1e-5 of each cell's sum of
    |g·w| against the plain version on the card at full width (MO level 0
    and 6, SO with 368 lanes at level 6), whose float atomics add in another
    order; two launches on the same inputs must give the same bits. Times
@@ -48,14 +51,16 @@
    budget of two, acquired A, B, C, A (each demotion must free >= 0.95 of
    a model's bytes, the hot set's ``registry_hot_bytes`` must equal its
    tensor bytes, promotions timed); 48 euler requests of 64-4,000 rows from
-   4 threads (about 2/3 interactive) through the ``InflightScheduler`` and
-   through its drain arm (``sync_resolve=True``): every request bit-equal
+   4 threads (about 2/3 interactive) through the ``InflightScheduler`` (a
+   first, warm-up run of it checked, not kept) and through its drain arm
+   (``sync_resolve=True``), in turns: every request bit-equal
    to a ``sample()`` replay of its batch, >= 2 batches in flight, 99
    ``tree_predict`` launches a batch, rows/s, queue wait and device time
    from the spans, and how many batches' copies finished while the next
    batch's device work had not; a swap of A for A' (seed 3) under 16
    requests (none dropped, the batches after it bit-equal on A', no
-   kernel library built or loaded); ``serve_http`` in a thread (generate,
+   kernel library built or loaded: the leg runs under ``build_budget(0)``);
+   ``serve_http`` in a thread (generate,
    impute, trace, ``/metrics`` with the device gauges, a profiler capture);
    and the refresh loop on a two-moons model (ingest, train_forest,
    serve_http, refresh: append, extend on the card, reload to version 2).
@@ -88,6 +93,40 @@
    gives the card and the CPU different rows, a two-moons fit with the same
    noise, on one device and on the sharded route's one rank, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
    that a warm-start extension on the card equals a cold fit bit for bit.
+
+12. Drives the comparison plane (``drive_comparison``, budgeted at 120 s):
+   (a) NN-flow, NN-diffusion, TVAE and CTGAN on the card against the plain
+   path on the CPU on two-moons (20 steps, the same initial weights and
+   per-step draws, TF32 off): parameters within 1e-4, losses within 1e-5
+   relative, ``generate`` from the same noise within 1e-4; the
+   Original-style trainer (n_t=2, K=4, T=4, depth 3): tree structure equal,
+   thresholds and leaves within 1e-5, and ours-SO and ours-MO fits at
+   (c)'s configuration (n=1,000) the same way;
+   ``sample_loop_reference`` from the same x1 within SMALL_TOL. Phase 3's
+   kernel checks hold hist and tree_predict to their plain versions at
+   this phase's shapes too (32 bins at p=2, 3, 6 and 8 up to ~520,000 rows
+   a class; depth 4, T=15). (b) The quality table of paper Table 2 / 7 at
+   ``benchmarks/bench_quality.py``'s quick sizes (two-moons, a 3-class
+   Gaussian mixture, a 6-D correlated Gaussian, n=600, 80/20 split; FF-SO,
+   FF-MO, FD-SO, copula, TVAE, NN-flow, NN-diffusion, CTGAN): W1 and sliced
+   W1 to the test split, coverage, mean rank, seconds; gated on shape and
+   finiteness only. (c) The resource comparison of Figures 1/2/4 at
+   ``bench_resource_scaling.py``'s configuration (p=8, n_y=2, n_t=3, K=10,
+   T=10, depth 4, 32 bins): the Original-style arm at n=200, 500, 1,000,
+   ours-SO and ours-MO up to n=100,000, the early-stopping arms at 1,000,
+   each in a fresh subprocess importing only the port with the kernels
+   built: wall seconds, peak RSS, RSS above the post-init baseline, device
+   peak, hist launches (each must launch hist). (d) NN-flow (hidden 256,
+   depth 3, batch 256), TVAE, CTGAN and the copula at photons width on
+   16,000 seeded showers with 4,000 held out: steps/s, ``generate`` rows/s
+   at n=120,000 (NN: 50 steps), device peak; W1 and classifier AUC logged,
+   and an output whose every column is constant marked degenerate.
+   Cuts, to keep the phase near two minutes: (a) holds the Original-style
+   trainer against the CPU on two-moons only, not at (c)'s configuration;
+   (b) trains the NN baselines 200 steps (bench_quality.py's quick sizes:
+   600); (d) trains 300 steps a model (the benchmarks train 2,000-2,500),
+   reads its metrics on the first 4,000 generated rows (as many as are
+   held out), and leaves out coverage (an O(n^2) host k-NN at p=368).
 
 Exits non-zero on any failure and when no CUDA device is present. The line
 before the last is a JSON object with the kernels' numbers; the last line is
@@ -229,6 +268,12 @@ def tree_predict_cases():
               ("MO T=512, out 37", (3, 1, 512, 3, 37, 37, 130)),
               ("MO T=1, out 2", (2, 1, 1, 7, 5, 2, 97)),
               ("MO S=3, out 6", (2, 3, 5, 4, 9, 6, 130))]
+    # the comparison phase's quality table: depth 4, T = 15, p = 2, 3, 6
+    # (240, 164 and 480 rows a class), and the loop reference's one class
+    for p, b, n in ((2, 2, 240), (3, 3, 164), (6, 1, 480)):
+        cases += [(f"quality SO p={p}", (b, p, 15, 4, p, 1, n)),
+                  (f"quality MO p={p}", (b, 1, 15, 4, p, p, n))]
+    cases.append(("loop reference one class", (1, 1, 4, 3, 2, 2, 200)))
     return cases
 
 
@@ -539,7 +584,7 @@ def drive_forest_serving(device, tmp):
     of each batch), a hot swap under traffic, the HTTP front end, and the
     refresh loop on a two-moons model. Returns (tree_predict launches,
     hist launches, numbers)."""
-    from repro_torch.kernels import build
+    from repro_torch.analysis.runtime import build_budget
     from repro_torch.kernels.tree_predict.ops import forest_predict
     from repro_torch.launch.serve_http import ServingApp, serve_in_thread
     from repro_torch.obs import (MetricsRegistry, Profiler, ResourceMonitor,
@@ -646,9 +691,13 @@ def drive_forest_serving(device, tmp):
     Probe = _probe_scheduler()
     handle = reg.peek("A")
     runs = []
-    # the two arms in turns (ABBA): host-clock numbers move between runs
-    for arm, sync_resolve in (("inflight", False), ("drain", True),
-                              ("drain", True), ("inflight", False)):
+    # the two arms in turns (ABBA): host-clock numbers move between runs.
+    # An in-flight run first, checked but not kept: a process's first run
+    # is its slowest while the allocators grow, and then each batch may
+    # resolve before the next is formed (one in flight)
+    for arm, sync_resolve in (("warm-up", False), ("inflight", False),
+                              ("drain", True), ("drain", True),
+                              ("inflight", False)):
         tracer = Tracer(capacity=4096)
         sched = Probe(reg, AdmissionController(), sync_resolve=sync_resolve,
                       max_coalesce_rows=N_Y * FOREST_BUCKETS[-1],
@@ -699,7 +748,8 @@ def drive_forest_serving(device, tmp):
                  tree_predict_per_batch=per_batch,
                  copy_before_next=sched.copy_before_next,
                  compared=sched.compared)
-        runs.append((arm, a))
+        if arm != "warm-up":
+            runs.append((arm, a))
         log(f"scheduler {arm}: {len(futs)} requests, {rows} rows in "
             f"{a['batches']} batches ({a['coalesced']} coalesced), "
             f"{wall!r} s, {a['rows_per_s']!r} rows/s; median queue wait "
@@ -731,10 +781,6 @@ def drive_forest_serving(device, tmp):
     tracer = Tracer(capacity=4096)
     sched = Probe(reg, AdmissionController(), tracer=tracer,
                   max_coalesce_rows=N_Y * FOREST_BUCKETS[-1])
-    build_dirs = {k: sorted(os.listdir(build.build_dir(k)))
-                  for k in ("tree_predict", "hist", "flash_attention")
-                  if os.path.isdir(build.build_dir(k))}
-    cache0 = build.load.cache_info()
     futs, errors, lock = [], [], threading.Lock()
 
     def swap_client(part):
@@ -750,22 +796,25 @@ def drive_forest_serving(device, tmp):
     swap_sizes = sizes[:SWAP_REQUESTS]
     before_swap = swap_sizes[:SWAP_REQUESTS - 4]
     forest_predict.launches = 0
-    threads = [threading.Thread(target=swap_client, args=(before_swap[i::2],))
-               for i in range(2)]
-    for t in threads:
-        t.start()
-    time.sleep(0.15)
-    t0 = time.perf_counter()
-    new_handle = reg.swap("A", new)
-    swap_s = time.perf_counter() - t0
-    t_swapped = time.monotonic()           # the spans' clock
-    del new
-    swap_client(swap_sizes[SWAP_REQUESTS - 4:])    # dispatched after it
-    for t in threads:
-        t.join(timeout=300)
-    for f in futs:
-        f.result(timeout=300)
-    sched.stop()
+    # the whole leg, traffic included, builds and loads no kernel library
+    with build_budget(0) as watch:
+        threads = [threading.Thread(target=swap_client,
+                                    args=(before_swap[i::2],))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        time.sleep(0.15)
+        t0 = time.perf_counter()
+        new_handle = reg.swap("A", new)
+        swap_s = time.perf_counter() - t0
+        t_swapped = time.monotonic()           # the spans' clock
+        del new
+        swap_client(swap_sizes[SWAP_REQUESTS - 4:])    # dispatched after it
+        for t in threads:
+            t.join(timeout=300)
+        for f in futs:
+            f.result(timeout=300)
+        sched.stop()
     tp_launches += forest_predict.launches
     if errors or len(futs) != SWAP_REQUESTS:
         raise AssertionError(f"swap: {len(futs)} of {SWAP_REQUESTS} served, "
@@ -776,16 +825,11 @@ def drive_forest_serving(device, tmp):
     if not after or any(matched[b] != 1 for b in after):
         raise AssertionError(f"swap: batches dispatched after it {after} "
                              f"matched {matched}")
-    cache1 = build.load.cache_info()
-    dirs1 = {k: sorted(os.listdir(build.build_dir(k))) for k in build_dirs}
-    if cache1 != cache0 or dirs1 != build_dirs:
-        raise AssertionError(f"swap built or loaded a kernel library: "
-                             f"{cache0} -> {cache1}")
     log(f"swap A -> A' (seed 3) in {swap_s!r} s under traffic: "
         f"{SWAP_REQUESTS} requests served, none dropped; "
         f"{len(after)} batches dispatched after the swap replay bit-equal "
         f"on A' ({sum(v == 0 for v in matched.values())} on A); "
-        f"build.load cache {cache1}, no library built or loaded")
+        f"kernel libraries built or loaded {watch.libraries} (budget 0)")
     out["swap"] = dict(swap_s=swap_s, requests=SWAP_REQUESTS,
                        batches_after=len(after),
                        version=new_handle.version)
@@ -1065,6 +1109,30 @@ def hist_cases():
          "out_of_range"),
         ("MO 256 bins level 6", (3000, 37, 37, 1, 64, 256, i32)),
     ]
+    # the comparison phase's fits (32 bins, depth 4, levels 0 and 3, and
+    # the leaf sums): the resource arms at p = 8, n = 1,000, 10,000 and
+    # 100,000 (5,210, 52,000 and ~520,000 rows a class), the quality
+    # table's datasets at p = 2, 3 and 6
+    exact += [(f"{arm} {rows:,} rows level {lv}", (rows, 8, out, S, 2 ** lv,
+                                                   32, i32))
+              for arm, out, S, sizes in (
+                  ("Original-style", 1, 1, (5210, 52_000)),
+                  ("ours-SO", 1, 8, (5210, 52_000, 520_000)),
+                  ("ours-MO", 8, 1, (5210, 52_000, 520_000)))
+              for rows in sizes for lv in (0, 3)]
+    exact += [
+        ("ours-SO-ES 7 lanes level 2", (5210, 8, 1, 7, 4, 32, i32)),
+        ("ours-SO leaf sums", (520_000, 1, 1, 8, 16, 1, i8)),
+        ("ours-MO leaf sums", (520_000, 1, 8, 1, 16, 1, i8)),
+        ("Original-style leaf sums", (5210, 1, 1, 1, 16, 1, i8))]
+    exact += [(f"quality {kind} p={p} level {lv}", (rows, p, out, S, 2 ** lv,
+                                                    32, i32))
+              for p, rows in ((2, 2400), (3, 1640), (6, 4800))
+              for kind, out, S in (("SO", 1, p), ("MO", p, 1))
+              for lv in (0, 3)]
+    exact += [("quality SO p=6 5 lanes", (4800, 6, 1, 5, 8, 32, i32)),
+              ("quality MO p=6 leaf sums", (4800, 1, 6, 1, 16, 1, i8)),
+              ("quality SO p=3 leaf sums", (1640, 1, 1, 3, 16, 1, i8))]
     full = [("MO level 0", (FIT_ROWS, P, P, 1, 1, N_BINS, i32)),
             ("MO level 6", (FIT_ROWS, P, P, 1, 64, N_BINS, i32)),
             ("SO level 6", (FIT_ROWS, P, 1, P, 64, N_BINS, i32))]
@@ -1458,6 +1526,559 @@ def check_training_small(device):
             if not same or err > SMALL_TOL:
                 raise AssertionError("sharded training: device and plain "
                                      "path disagree")
+
+
+# ---------------------------------------------------------------------------
+# the comparison plane: baselines, the Original-style trainer, quality
+# ---------------------------------------------------------------------------
+
+BASELINE_STEPS = 20            # card vs CPU at a small size
+PARAM_TOL, LOSS_RTOL = 1e-4, 1e-5
+QUALITY_STEPS = 200            # bench_quality.py's quick=True: 600
+QUALITY_FOREST = dict(n_t=8, duplicate_k=10, n_trees=15, max_depth=4,
+                      n_bins=32, reg_lambda=1.0, early_stop_rounds=5)
+# benchmarks/bench_resource_scaling.py's configuration
+RESOURCE = dict(p=8, n_y=2, n_t=3, K=10, T=10)
+RESOURCE_ARMS = ([("original", n) for n in (200, 500, 1000)]
+                 + [(arm, n) for arm in ("ours-SO", "ours-MO")
+                    for n in (200, 500, 1000, 10_000, 100_000)]
+                 + [("ours-SO-ES", 1000), ("ours-MO-ES", 1000)])
+PHOTONS_FIT, PHOTONS_HELD, PHOTONS_STEPS = 16_000, 4_000, 300
+METRIC_ROWS = PHOTONS_HELD     # generated rows the photons metrics read
+
+
+def numpy_mlp(sizes, rng):
+    """Initial weights in the JAX package's layout, from a numpy stream."""
+    return [{"w": (a ** -0.5 * rng.normal(size=(a, b))).astype(np.float32),
+             "b": np.zeros((b,), np.float32)}
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def host_draws(kinds, n, seed):
+    """``draws(step)`` for a baseline's fit, drawn on the host from a
+    generator seeded by (seed, step), so both devices see the same numbers.
+    ``kinds``: ``("idx", k)`` row indices into n rows, ``("t", k, lo)``
+    uniform on [lo, 1), ``("randn", shape)`` standard normals."""
+    def draws(step):
+        g = torch.Generator().manual_seed(seed * 100_003 + step)
+        out = []
+        for kind, shape, *lo in kinds:
+            if kind == "idx":
+                out.append(torch.randint(0, n, (shape,), generator=g))
+            elif kind == "t":
+                out.append(lo[0] + (1.0 - lo[0]) * torch.rand(
+                    (shape,), generator=g))
+            else:
+                out.append(torch.randn(shape, generator=g))
+        return tuple(out)
+    return draws
+
+
+def small_baselines(n, p, n_y):
+    """(label, constructor, init, draws, noise shape) of each NN baseline
+    at the card-vs-CPU size."""
+    from repro_torch.config import ForestConfig
+    from repro_torch.core.ctgan import CTGANBaseline
+    from repro_torch.core.nn_baselines import NNGenerativeModel, TVAEBaseline
+    rng = np.random.default_rng(7)
+    hid, batch, lat = 64, 64, 4
+    out = []
+    for i, method in enumerate(("flow", "diffusion")):
+        lo = 1e-3 if method == "diffusion" else 0.0
+        out.append((f"nn-{method}", lambda m=method: NNGenerativeModel(
+            ForestConfig(method=m), hidden=hid, depth=2,
+            steps=BASELINE_STEPS, batch=batch),
+            numpy_mlp([p + 32 + n_y, hid, hid, p], rng),
+            host_draws((("idx", batch), ("t", batch, lo),
+                        ("randn", (batch, p))), n, i), (50, p)))
+    out.append(("tvae", lambda: TVAEBaseline(
+        latent=lat, hidden=hid, steps=BASELINE_STEPS, batch=batch),
+        {"enc": numpy_mlp([p, hid, 2 * lat], rng),
+         "dec": numpy_mlp([lat, hid, p], rng)},
+        host_draws((("idx", batch), ("randn", (batch, lat))), n, 2),
+        (50, lat)))
+    out.append(("ctgan", lambda: CTGANBaseline(
+        latent=lat, hidden=hid, steps=BASELINE_STEPS, batch=batch),
+        {"gen": numpy_mlp([lat + n_y, hid, hid, p], rng),
+         "dis": numpy_mlp([p + n_y, hid, hid, 1], rng)},
+        host_draws((("idx", batch), ("randn", (batch, lat))) * 2, n, 3),
+        (50, lat)))
+    return out
+
+
+def model_params(model):
+    nets = [getattr(model, k) for k in ("net", "enc", "dec", "gen", "dis")
+            if hasattr(model, k)]
+    return torch.cat([q.detach().flatten().cpu() for net in nets
+                      for q in net.parameters()])
+
+
+def model_losses(model):
+    if hasattr(model, "losses"):
+        return model.losses
+    return np.concatenate([model.d_losses, model.g_losses])
+
+
+def forests_differ(a, b):
+    """(structure equal, largest |difference| of thresholds and leaves) of
+    two lists of forests with fields feat, thr_val, leaf, best_round and
+    rounds_run (numpy arrays or tensors); +inf thresholds compare equal."""
+    def host(v):
+        return v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+    same = len(a) == len(b) and all(
+        np.array_equal(host(getattr(x, f)), host(getattr(z, f)))
+        for x, z in zip(a, b) for f in ("feat", "best_round", "rounds_run"))
+    with np.errstate(invalid="ignore"):     # inf - inf at the sentinels
+        err = max(float(np.nan_to_num(np.abs(
+            host(getattr(x, f)) - host(getattr(z, f))), nan=0.0).max())
+            for x, z in zip(a, b) for f in ("thr_val", "leaf"))
+    return same, err
+
+
+def check_resource_fits(device):
+    """ours-SO and ours-MO at the resource comparison's configuration (p =
+    8, two classes, n = 1,000, depth 4, 32 bins) on the card against the
+    plain path on the CPU, noise drawn on the host: tree structure equal,
+    thresholds and leaves within 1e-5. (The Original-style arm's fits are
+    one-lane fits of the same trainer, held on two-moons above; at this
+    configuration its 240 host-bound per-output fits on each device would
+    add no shape: phase 4 holds hist at its 32-bin, p = 8 shapes.)"""
+    from repro_torch.config import ForestConfig
+    from repro_torch.data.tabular import synthetic_resource_dataset
+    from repro_torch.tabgen import fit_artifacts
+    X, y = synthetic_resource_dataset(1000, RESOURCE["p"], RESOURCE["n_y"],
+                                      seed=0)
+    worst = {}
+    for arm in ("ours-SO", "ours-MO"):
+        cfg = ForestConfig(n_t=RESOURCE["n_t"], duplicate_k=RESOURCE["K"],
+                           n_trees=RESOURCE["T"], max_depth=4, n_bins=32,
+                           reg_lambda=1.0, multi_output=arm == "ours-MO")
+        same, err = forests_differ(
+            *[[fit_artifacts(X, y, cfg, device=d, noise=cpu_noise)]
+              for d in (device, torch.device("cpu"))])
+        log(f"{arm} fit at the resource configuration (n = 1,000) on "
+            f"{device.type} vs plain on cpu: structure equal {same}, "
+            f"thresholds and leaves max abs diff {err!r}")
+        if not same or err > 1e-5:
+            raise AssertionError(f"{arm} at the resource configuration: "
+                                 "card and CPU disagree")
+        worst[arm] = err
+    return worst
+
+
+def check_comparison_small(device):
+    """(a) Each NN baseline on the card against the plain path on the CPU
+    (same initial weights, the same draws, 20 steps, TF32 off); the
+    Original-style trainer on two-moons (structure equal, thresholds and
+    leaves within 1e-5); sample_loop_reference from the same x1."""
+    from repro_torch.config import ForestConfig
+    from repro_torch.core.naive import NaiveForestGenerativeModel
+    from repro_torch.tabgen import fit_artifacts, sample_loop_reference
+    X, y = two_moons(240, seed=0)
+    worst = {}
+    for label, make, init, draws, noise_shape in small_baselines(240, 2, 2):
+        fits = [make().fit(X, y, seed=0, device=d, draws=draws, init=init)
+                for d in (device, torch.device("cpu"))]
+        p_err = (model_params(fits[0]) - model_params(fits[1])).abs().max()
+        l0, l1 = model_losses(fits[0]), model_losses(fits[1])
+        l_err = float(np.max(np.abs(l0 - l1) / np.abs(l1)))
+        noise = torch.randn(noise_shape,
+                            generator=torch.Generator().manual_seed(5))
+        kw = {"x1": noise} if label.startswith("nn") else {"z": noise}
+        gens = [m.generate(50, seed=4, **kw) for m in fits]
+        gens = [g if label == "tvae" else g[0] for g in gens]
+        g_err = float(np.abs(gens[0] - gens[1]).max())
+        worst[label] = dict(params=p_err.item(), loss_rel=l_err,
+                            generate=g_err)
+        log(f"{label} on {device.type} vs plain on cpu after "
+            f"{BASELINE_STEPS} steps: params max abs diff {p_err.item()!r}, "
+            f"losses max rel diff {l_err!r}, generate max abs diff "
+            f"{g_err!r}")
+        if p_err > PARAM_TOL or l_err > LOSS_RTOL or g_err > PARAM_TOL:
+            raise AssertionError(f"{label}: card and CPU disagree")
+    cfg = ForestConfig(n_t=2, duplicate_k=4, n_trees=4, max_depth=3,
+                       n_bins=16, reg_lambda=1.0)
+    Xs, ys = two_moons(60, seed=0)
+    fits = [NaiveForestGenerativeModel(cfg).fit(Xs, ys, seed=0, device=d)
+            for d in (device, torch.device("cpu"))]
+    keys = [[k for k, _ in m.models] for m in fits]
+    same, err = forests_differ(*[[f for _, f in m.models] for m in fits])
+    same = same and keys[0] == keys[1]
+    log(f"Original-style trainer on {device.type} vs plain on cpu "
+        f"({len(keys[0])} per-output fits): keys and structure equal "
+        f"{same}, thresholds and leaves max abs diff {err!r}")
+    if not same or err > 1e-5:
+        raise AssertionError("Original-style trainer: card and CPU disagree")
+    worst["original"] = err
+    worst["resource_config"] = check_resource_fits(device)
+    art = fit_artifacts(X, y, ForestConfig(n_t=5, duplicate_k=4, n_trees=4,
+                                           max_depth=3, n_bins=16),
+                        device="cpu", noise=cpu_noise)
+    x1 = {yi: torch.randn((n, 2), generator=torch.Generator().manual_seed(yi))
+          for yi, n in ((0, 200), (1, 200))}
+    outs = [sample_loop_reference(art.to(d), 137, seed=3,
+                                  x1=lambda yi, shape: x1[yi][:shape[0]])
+            for d in (device, torch.device("cpu"))]
+    err = float(np.abs(outs[0][0] - outs[1][0]).max())
+    log(f"sample_loop_reference on {device.type} vs plain on cpu, same x1: "
+        f"max abs diff {err!r}")
+    if err > SMALL_TOL or not np.array_equal(outs[0][1], outs[1][1]):
+        raise AssertionError("sample_loop_reference: card and CPU disagree")
+    worst["loop_reference"] = err
+    return worst
+
+
+def quality_datasets(n=600, seed=0):
+    """bench_quality.py's datasets: two-moons, a 3-class Gaussian mixture
+    and a 6-D correlated Gaussian (unlabelled)."""
+    from repro_torch.data.tabular import correlated_gaussian
+    rng = np.random.default_rng(seed)
+    X, y = two_moons(n, seed=seed)
+    mus = np.array([[-2, 0, 1], [2, 1, -1], [0, -2, 2]], np.float32)
+    Xg = np.concatenate([m + 0.5 * rng.normal(size=(n // 3, 3))
+                         for m in mus]).astype(np.float32)
+    yg = np.repeat(np.arange(3), n // 3)
+    perm = rng.permutation(len(Xg))
+    Xc, _ = correlated_gaussian(n, 6, seed=seed)
+    return {"two_moons": (X, y), "gauss_mix": (Xg[perm], yg[perm]),
+            "corr_gauss": (Xc, None)}
+
+
+def quality_methods():
+    """bench_quality.py's methods at its quick sizes."""
+    from repro_torch.config import ForestConfig
+    from repro_torch.core.copula import GaussianCopula
+    from repro_torch.core.ctgan import CTGANBaseline
+    from repro_torch.core.nn_baselines import NNGenerativeModel, TVAEBaseline
+    from repro_torch.tabgen import TabularGenerator
+    fc = QUALITY_FOREST
+    return {
+        "FF-SO": lambda: TabularGenerator(ForestConfig(method="flow", **fc)),
+        "FF-MO": lambda: TabularGenerator(
+            ForestConfig(method="flow", multi_output=True, **fc)),
+        "FD-SO": lambda: TabularGenerator(
+            ForestConfig(method="diffusion", **fc)),
+        "copula": GaussianCopula,
+        "tvae": lambda: TVAEBaseline(steps=QUALITY_STEPS),
+        "nn-flow": lambda: NNGenerativeModel(ForestConfig(method="flow"),
+                                             steps=QUALITY_STEPS),
+        "nn-diff": lambda: NNGenerativeModel(
+            ForestConfig(method="diffusion"), steps=QUALITY_STEPS),
+        "ctgan": lambda: CTGANBaseline(steps=QUALITY_STEPS),
+    }
+
+
+def quality_table(device):
+    """(b) Paper Table 2 / 7 at bench_quality.py's quick sizes, on the card:
+    W1 to the test split (per feature and sliced), coverage of the test
+    split, mean rank by sliced W1, fit + generate seconds. Gated on shape
+    and finiteness; the ordering is logged."""
+    from repro_torch.core.copula import GaussianCopula
+    from repro_torch.eval import metrics as M
+    rows = {}
+    for ds, (X, y) in quality_datasets().items():
+        n = len(X)
+        tr, te = X[: int(0.8 * n)], X[int(0.8 * n):]
+        ytr = y[: int(0.8 * n)] if y is not None else None
+        k = M.auto_k(tr, te)
+        for name, make in quality_methods().items():
+            t0 = time.perf_counter()
+            model = make()
+            if isinstance(model, GaussianCopula):
+                G = model.fit(tr).generate(len(tr), seed=1)
+            elif name == "tvae":
+                G = model.fit(tr, device=device).generate(len(tr), seed=1)
+            else:
+                G, _ = model.fit(tr, ytr, seed=0, device=device).generate(
+                    len(tr), seed=1)
+            sync(device)
+            wall = time.perf_counter() - t0
+            if G.shape != tr.shape or not np.isfinite(G).all():
+                raise AssertionError(f"quality {ds}/{name}: {G.shape}, "
+                                     "not finite or not the train shape")
+            rows[ds, name] = dict(
+                w1_test=M.w1_per_feature(G, te), sliced_w1_test=M.sliced_w1(
+                    G, te), coverage_test=M.coverage(G, te, k), seconds=wall)
+    names = list(quality_methods())
+    ranks = {m: [] for m in names}
+    for ds in quality_datasets():
+        order = sorted(names, key=lambda m: rows[ds, m]["sliced_w1_test"])
+        for r, m in enumerate(order, start=1):
+            ranks[m].append(r)
+    table = {}
+    for m in names:
+        table[m] = dict(mean_rank=float(np.mean(ranks[m])), datasets={
+            ds: rows[ds, m] for ds in quality_datasets()})
+        log(f"quality {m:8s} mean rank {table[m]['mean_rank']:.2f}: " + "; "
+            .join(f"{ds} W1 {r['w1_test']:.4f} sliced {r['sliced_w1_test']:.4f}"
+                  f" cov {r['coverage_test']:.3f} {r['seconds']:.2f} s"
+                  for ds, r in table[m]["datasets"].items()))
+    return table
+
+
+_ARM = r"""
+import dataclasses, json, os, sys, threading, time
+import torch
+from repro_torch.config import ForestConfig
+from repro_torch.core.naive import NaiveForestGenerativeModel
+from repro_torch.data.tabular import synthetic_resource_dataset
+from repro_torch.kernels import build
+from repro_torch.kernels.hist.ops import histogram
+from repro_torch.tabgen import TabularGenerator
+
+arm, sizes, p, n_y, n_t, K, T = ({arm!r}, {sizes!r}, {p}, {n_y}, {n_t}, {K},
+                                 {T})
+device = torch.device({device!r})
+on_card = device.type == "cuda"
+fcfg = ForestConfig(n_t=n_t, duplicate_k=K, n_trees=T, max_depth=4,
+                    n_bins=32, reg_lambda=1.0,
+                    multi_output=arm.startswith("ours-MO"),
+                    early_stop_rounds=5 if arm.endswith("-ES") else 0)
+Model = NaiveForestGenerativeModel if arm == "original" else TabularGenerator
+PAGE = os.sysconf("SC_PAGE_SIZE")
+
+
+def fit(X, y, cfg):
+    Model(cfg).fit(X, y, seed=0, device=device)
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE
+
+
+class PeakRSS(threading.Thread):   # samples the RSS every 2 ms
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.lock = threading.Lock()
+        self.peak = rss()
+
+    def run(self):
+        while True:
+            time.sleep(0.002)
+            now = rss()
+            with self.lock:
+                self.peak = max(self.peak, now)
+
+    def reset(self):
+        with self.lock:
+            self.peak = rss()
+            return self.peak
+
+    def read(self):
+        now = rss()
+        with self.lock:
+            return max(self.peak, now)
+
+
+# one sampler for the process, started before the warm-up, so that no fit
+# pays for its thread
+sampler = PeakRSS()
+sampler.start()
+# CUDA init and kernel load: one-round fits at the smallest and the largest
+# size load the kernels (and the CUDA modules, loaded lazily, some only
+# past a size) that this arm's fits run
+for n in (sizes[0], sizes[-1]):
+    fit(*synthetic_resource_dataset(n, p, n_y, seed=1),
+        dataclasses.replace(fcfg, n_t=1, n_trees=1))
+print(json.dumps(dict(ready=True)), flush=True)
+sys.stdin.readline()        # the parent's go: no two arms' fits overlap
+for n in sizes:
+    histogram.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    base_rss = sampler.reset()
+    X, y = synthetic_resource_dataset(n, p, n_y, seed=0)
+    t0 = time.perf_counter()
+    fit(X, y, fcfg)
+    wall = time.perf_counter() - t0
+    peak = sampler.read()
+    del X, y
+    print(json.dumps(dict(
+        arm=arm, n=n, wall_s=wall, peak_rss_bytes=peak,
+        base_rss_bytes=base_rss, rss_over_base_bytes=peak - base_rss,
+        max_device_bytes=(torch.cuda.max_memory_allocated() if on_card
+                          else None),
+        hist_launches=histogram.launches)), flush=True)
+print(json.dumps(dict(
+    nvcc_runs=sum(c for (kind, _), c in build.events().items()
+                  if kind == "build"))))
+"""
+
+
+def resource_comparison(device, tmp):
+    """(c) Paper Figures 1/2/4 at bench_resource_scaling.py's configuration.
+    Each arm runs in a fresh subprocess that imports only the port, with
+    the kernels already built. The arms start together; each fits its sizes
+    in increasing order when the one before it has finished: wall
+    seconds, peak RSS and RSS above the baseline before the fit (after CUDA
+    init and kernel load: one-round fits at the arm's smallest and largest
+    size first load what it runs; a thread samples the RSS every 2 ms;
+    freed blocks go back to the system at once), peak device bytes, hist
+    launches. Gate: every arm exits 0, every fit
+    launched hist, and no arm ran nvcc."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    # glibc's malloc: blocks over 64 KB are mapped and unmapped, and the
+    # heap is trimmed on free, so what one fit freed is not the next fit's
+    # free memory and the RSS follows the live data
+    env = dict(os.environ, PYTHONPATH=src, MALLOC_MMAP_THRESHOLD_="65536",
+               MALLOC_TRIM_THRESHOLD_="0")
+    on_card = device.type == "cuda"    # the CPU path launches nothing
+    arms = {}
+    for arm, n in RESOURCE_ARMS:
+        arms.setdefault(arm, []).append(n)
+    procs = {}
+    try:
+        for arm, sizes in arms.items():    # start-ups overlap, fits do not
+            path = os.path.join(tmp, f"arm_{arm}.py")
+            with open(path, "w") as f:
+                f.write(_ARM.format(arm=arm, sizes=tuple(sizes),
+                                    device=str(device), **RESOURCE))
+            err = open(path + ".err", "w")
+            procs[arm] = (subprocess.Popen(
+                [sys.executable, path], stdin=subprocess.PIPE,
+                stdout=subprocess.PIPE, stderr=err, text=True, env=env), err)
+        records = []
+        for arm, (proc, err) in procs.items():
+            ready = proc.stdout.readline()
+            if not ready.startswith('{"ready"'):
+                raise AssertionError(f"resource arm {arm} did not start: "
+                                     f"{ready!r}")
+        for arm, (proc, err) in procs.items():
+            t0 = time.perf_counter()
+            out, _ = proc.communicate("go\n", timeout=600)
+            err.close()
+            if proc.returncode != 0:
+                with open(err.name) as f:
+                    raise AssertionError(f"resource arm {arm} exited "
+                                         f"{proc.returncode}:\n"
+                                         f"{f.read()[-4000:]}")
+            lines = [json.loads(line) for line in out.strip().splitlines()]
+            recs, tail = lines[:-1], lines[-1]
+            if (len(recs) != len(arms[arm]) or tail["nvcc_runs"] != 0
+                    or (on_card and any(x["hist_launches"] == 0
+                                        for x in recs))):
+                raise AssertionError(f"resource arm {arm}: {lines}")
+            for rec in recs:
+                log(f"resource {arm:10s} n={rec['n']:>7,}: fit "
+                    f"{rec['wall_s']!r} s, peak RSS {rec['peak_rss_bytes']} "
+                    f"B ({rec['rss_over_base_bytes']} over the "
+                    f"{rec['base_rss_bytes']} B before the fit), device peak "
+                    f"{rec['max_device_bytes']} B, {rec['hist_launches']} "
+                    "hist launches")
+            log(f"resource {arm}: {time.perf_counter() - t0:.1f} s after its "
+                "go")
+            records += recs
+        return records
+    finally:
+        for proc, err in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+
+
+def photons_baselines(device):
+    """(d) The NN baselines and the copula at CaloForest photons width
+    (p = 368, 15 classes): 16,000 seeded showers to train on and 4,000
+    held out; 300 training steps each; generate 120,000 rows (NN: 50
+    steps). Training steps/s (after a 3-step fit of the same shapes, in
+    which cuBLAS picks and loads its kernels), generate rows/s, peak device
+    bytes; the per-feature W1 and classifier AUC against the held-out
+    showers (on the first 4,000 generated rows) are logged, not gated.
+    Coverage is left out: its host k-NN is O(n^2) at this width. Each
+    record counts the generated columns that hold one value and marks an
+    output with every column constant as degenerate."""
+    from repro_torch.config import ForestConfig
+    from repro_torch.core.copula import GaussianCopula
+    from repro_torch.core.ctgan import CTGANBaseline
+    from repro_torch.core.nn_baselines import NNGenerativeModel, TVAEBaseline
+    from repro_torch.eval import metrics as M
+    rng = np.random.default_rng(3)
+    X, y = calo_photons(rng.integers(0, N_Y, PHOTONS_FIT + PHOTONS_HELD),
+                        seed=3)
+    tr, ytr = X[:PHOTONS_FIT], y[:PHOTONS_FIT]
+    held = X[PHOTONS_FIT:]
+    makers = {
+        "nn-flow": lambda steps: NNGenerativeModel(
+            ForestConfig(method="flow"), hidden=256, depth=3, steps=steps,
+            batch=256),
+        "tvae": lambda steps: TVAEBaseline(steps=steps),
+        "ctgan": lambda steps: CTGANBaseline(steps=steps),
+        "copula": lambda steps: GaussianCopula()}
+    out = {}
+    on_card = device.type == "cuda"
+    for name, make in makers.items():
+        if name != "copula":    # cuBLAS picks and loads its kernels
+            make(3).fit(tr, ytr, seed=0, device=device)
+        model = make(PHOTONS_STEPS)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if name == "copula":
+            model.fit(tr)
+        else:
+            model.fit(tr, ytr, seed=0, device=device)
+        sync(device)
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        G = model.generate(N_ROWS, seed=1)
+        G = G if name in ("copula", "tvae") else G[0]
+        gen_s = time.perf_counter() - t0
+        if G.shape != (N_ROWS, P) or not np.isfinite(G).all():
+            raise AssertionError(f"photons {name}: {G.shape} or not finite")
+        # columns of the generated rows that hold one value: all P of them
+        # make a degenerate output (the copula's, where constant training
+        # columns leave NaNs in its correlation), whose W1 is no result
+        const = int((G.min(0) == G.max(0)).sum())
+        rec = dict(fit_s=fit_s, generate_s=gen_s, constant_columns=const,
+                   degenerate=const == P,
+                   generate_rows_per_s=N_ROWS / gen_s,
+                   max_device_bytes=(torch.cuda.max_memory_allocated()
+                                     if on_card else None),
+                   w1=M.w1_per_feature(G[:METRIC_ROWS], held),
+                   classifier_auc=M.classifier_auc(held, G[:METRIC_ROWS]))
+        if name != "copula":
+            rec["train_steps_per_s"] = PHOTONS_STEPS / fit_s
+        out[name] = rec
+        log(f"photons {name}: fit {fit_s:.3f} s"
+            + (f" ({rec['train_steps_per_s']:.1f} steps/s)"
+               if name != "copula" else "")
+            + f", generate {N_ROWS} rows {gen_s:.3f} s "
+            f"({rec['generate_rows_per_s']:.0f} rows/s), device peak "
+            f"{rec['max_device_bytes']} B, W1 {rec['w1']:.4g}, "
+            f"classifier AUC {rec['classifier_auc']:.4f}, {const} of {P} "
+            "generated columns constant"
+            + (" (a degenerate output)" if rec["degenerate"] else ""))
+    return out
+
+
+def drive_comparison(device, tmp):
+    """Phase 12: (a) card against CPU at a small size, (b) the quality
+    table, (c) the resource comparison in subprocesses, (d) the baselines
+    at photons width. Returns the numbers and the hist launches of (c)'s
+    subprocesses."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = check_comparison_small(device)
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["quality"] = quality_table(device)
+    out["quality_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["resource"] = resource_comparison(device, tmp)
+    out["resource_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["photons"] = photons_baselines(device)
+    out["photons_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"comparison phase: {out['seconds']:.1f} s (card vs cpu "
+        f"{out['card_vs_cpu_s']:.1f}, quality {out['quality_s']:.1f}, "
+        f"resource {out['resource_s']:.1f}, photons {out['photons_s']:.1f})")
+    return out, sum(a["hist_launches"] for a in out["resource"])
 
 
 # ---------------------------------------------------------------------------
@@ -1863,6 +2484,21 @@ def main() -> int:
     fa_launches, serving = drive_serving(device)
     torch.cuda.empty_cache()
 
+    # -- the comparison plane ------------------------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        comparison, sub_hist = drive_comparison(device, tmp)
+    cmp_tp, cmp_hist = forest_predict.launches, histogram.launches
+    if cmp_tp == 0 or cmp_hist == 0:
+        raise AssertionError(f"comparison phase: {cmp_tp} tree_predict and "
+                             f"{cmp_hist} hist launches in this process")
+    comparison.update(tree_predict_launches=cmp_tp, hist_launches=cmp_hist,
+                      subprocess_hist_launches=sub_hist)
+    log(f"comparison phase: {cmp_tp} tree_predict and {cmp_hist} hist "
+        f"launches here, {sub_hist} hist launches in the resource arms' "
+        "subprocesses")
+    torch.cuda.empty_cache()
+
     check_small(device)
     check_training_small(device)
     check_serving_small(device)
@@ -1873,14 +2509,16 @@ def main() -> int:
         "name": "tree_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
         "replaces": "src/repro/kernels/tree_predict/tree_kernel.py:54",
-        "launches": sum(counts.values()) + fs_tp, "max_abs_err": worst,
+        "launches": sum(counts.values()) + fs_tp + cmp_tp,
+        "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
         "library_ms": None}, {
         "name": "hist", "route": "cuda",
         "source": "src/repro_torch/kernels/hist/csrc/hist.cu",
         "replaces": "src/repro/kernels/hist/hist_kernel.py:52",
-        "launches": hist_launches + fs_hist, "max_abs_err": hist_worst,
+        "launches": hist_launches + fs_hist + cmp_hist + sub_hist,
+        "max_abs_err": hist_worst,
         "ms": ht["ms"], "plain_ms": ht["plain_ms"],
         "bound_ms": ht["bound_ms"], "bound_by": ht["bound_by"],
         "library_ms": None}, {
@@ -1913,7 +2551,8 @@ def main() -> int:
                       "serving": serving,
                       "forest_serving": dict(
                           forest_serving, tree_predict_launches=fs_tp,
-                          hist_launches=fs_hist)}))
+                          hist_launches=fs_hist),
+                      "comparison": comparison}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,9 @@
 * :class:`ArchConfig` — an LM-family transformer architecture, a
   field-for-field copy of ``repro.config.ArchConfig`` (the port serves the
   ``dense`` family so far).
+* :class:`TrainConfig` — optimizer knobs (AdamW, its warmup-cosine
+  schedule, gradient clipping), a field-for-field copy of
+  ``repro.config.TrainConfig``, with the same defaults.
 * :class:`ForestConfig` — ForestFlow / ForestDiffusion hyperparameters.
 
 ``ForestConfig`` is a field-for-field copy of ``repro.config.ForestConfig``
@@ -81,6 +84,25 @@ class ArchConfig:
     @property
     def q_per_kv(self) -> int:
         return max(1, self.n_heads // max(1, self.n_kv_heads))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Trainer knobs shared across architectures and the NN baselines."""
+
+    dtype: str = "bfloat16"        # activation/compute dtype
+    param_dtype: str = "float32"   # master params
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    remat_policy: str = "full"     # "full" | "dots" | "none"
+    scan_layers: bool = True
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,8 +7,9 @@ exponential decay, layer-wise longitudinal profile, multiplicative noise, and
 heavy sparsity — enough for every pipeline and metric to run at the paper's
 scale (n ~ 121k, p = 368 / 533).
 
-A numpy-only copy of the generator half of ``repro.data.calorimeter``, row
-for row the same; the Challenge metrics stay in the JAX package.
+A numpy-only copy of ``repro.data.calorimeter``: the generator, row for row
+the same, and the Challenge metrics (App. A.1: the expert features and the
+chi^2 separation power), the same numbers for the same showers.
 """
 from __future__ import annotations
 
@@ -81,3 +82,45 @@ def generate_batches(dataset: str, n: int, *, batch_rows: int = 8192,
         rows = min(batch_rows, n - s)
         batch_seed = np.random.SeedSequence([seed, b]).generate_state(1)[0]
         yield generate(dataset, rows, seed=int(batch_seed))
+
+
+# ---------------------------------------------------------------------------
+# Challenge metrics (App. A.1)
+# ---------------------------------------------------------------------------
+
+def high_level_features(X: np.ndarray, dataset: str) -> dict:
+    """Expert features: E_dep/E_layer, center of energy + width per layer."""
+    layers, nr, na = GEOMETRY[dataset]
+    vox = X[:, :layers * nr * na].reshape(-1, layers, nr, na)
+    e_layer = vox.sum((2, 3))                          # [n, layers]
+    e_tot = e_layer.sum(1) + 1e-12
+    feats = {"e_dep": e_tot}
+    eta = np.arange(nr)[None, None, :, None]
+    phi = np.arange(na)[None, None, None, :]
+    w = vox / (vox.sum((2, 3), keepdims=True) + 1e-12)
+    ce_eta = (w * eta).sum((2, 3))                     # [n, layers]
+    ce_phi = (w * phi).sum((2, 3))
+    wd_eta = np.sqrt(np.clip((w * eta ** 2).sum((2, 3)) - ce_eta ** 2, 0, None))
+    wd_phi = np.sqrt(np.clip((w * phi ** 2).sum((2, 3)) - ce_phi ** 2, 0, None))
+    for l in range(layers):
+        feats[f"e_dep_l{l}"] = e_layer[:, l]
+        feats[f"ce_eta_l{l}"] = ce_eta[:, l]
+        feats[f"ce_phi_l{l}"] = ce_phi[:, l]
+        feats[f"width_eta_l{l}"] = wd_eta[:, l]
+        feats[f"width_phi_l{l}"] = wd_phi[:, l]
+    return feats
+
+
+def chi2_separation(a: np.ndarray, b: np.ndarray, bins: int = 30) -> float:
+    """Paper Eq. 7: chi^2 separation power between two histograms."""
+    lo = min(a.min(), b.min())
+    hi = max(a.max(), b.max())
+    if hi <= lo:
+        return 0.0
+    ha, _ = np.histogram(a, bins=bins, range=(lo, hi))
+    hb, _ = np.histogram(b, bins=bins, range=(lo, hi))
+    fa = ha / max(ha.sum(), 1)
+    fb = hb / max(hb.sum(), 1)
+    denom = fa + fb
+    mask = denom > 0
+    return float(0.5 * np.sum((fa[mask] - fb[mask]) ** 2 / denom[mask]))

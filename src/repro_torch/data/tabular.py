@@ -1,7 +1,7 @@
 """Synthetic tabular datasets for resource-scaling runs (paper §4.1,
-App. D.1) and the serving demos' two-moons: a numpy-only copy of the part
-of ``repro.data.tabular`` that the port's CLIs draw from, row for row the
-same.
+App. D.1), the serving demos' two-moons and the quality comparison's
+correlated Gaussian: a numpy-only copy of ``repro.data.tabular``, row for
+row the same.
 
 The ``*_batches`` variant streams the same family as bounded row batches
 for :func:`repro_torch.data.store.ingest` and the out-of-core benchmarks: batch
@@ -50,3 +50,41 @@ def two_moons(n: int, noise: float = 0.08, seed: int = 0):
     y = np.concatenate([np.zeros(n2), np.ones(n2)]).astype(np.int64)
     perm = rng.permutation(len(X))
     return X[perm].astype(np.float32), y[perm]
+
+
+def two_moons_batches(n: int, noise: float = 0.08, *,
+                      batch_rows: int = 65536, seed: int = 0):
+    """Chunked twin of :func:`two_moons` (each batch is an independently
+    shuffled small two-moons draw; the union has the same distribution)."""
+    for b, s in enumerate(range(0, n, batch_rows)):
+        rows = min(batch_rows, n - s)
+        batch_seed = np.random.SeedSequence([seed, b]).generate_state(1)[0]
+        # two_moons returns 2*(n//2) rows: over-ask by one and slice so
+        # odd batches (e.g. the tail) still total exactly n
+        X, y = two_moons(rows + rows % 2, noise=noise, seed=int(batch_seed))
+        yield X[:rows], y[:rows]
+
+
+def correlated_gaussian(n: int, p: int, seed: int = 0):
+    """Full-rank correlated Gaussian — tests joint-structure learning (the
+    paper's MO-trees motivation)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(p, p)) / np.sqrt(p)
+    cov = A @ A.T + 0.1 * np.eye(p)
+    X = rng.multivariate_normal(np.zeros(p), cov, size=n)
+    return X.astype(np.float32), cov
+
+
+def correlated_gaussian_batches(n: int, p: int, *, batch_rows: int = 65536,
+                                seed: int = 0):
+    """Chunked, label-free correlated Gaussian (one shared covariance drawn
+    from ``seed``; rows per batch from stream ``[seed, b]``) — exercises
+    the unlabelled ingest path with a non-trivial joint structure."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(p, p)) / np.sqrt(p)
+    cov = A @ A.T + 0.1 * np.eye(p)
+    for b, s in enumerate(range(0, n, batch_rows)):
+        rows = min(batch_rows, n - s)
+        brng = np.random.default_rng([seed, b])
+        yield brng.multivariate_normal(np.zeros(p), cov,
+                                       size=rows).astype(np.float32)

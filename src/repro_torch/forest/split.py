@@ -1,8 +1,8 @@
 """Best-split search from histograms (second-order boosting gain).
 
 For squared-error boosting the hessian is 1, so H is the accumulated sample
-weight. Multi-output trees sum the gain over outputs and share one split
-structure. Plain PyTorch on both devices, as the JAX package leaves it to
+weight. Multi-output trees sum the gain over outputs (in a fixed order:
+:func:`ordered_sum`) and share one split structure. Plain PyTorch on both devices, as the JAX package leaves it to
 XLA outside any Pallas kernel; every leading dimension (lanes, nodes) is a
 batch dimension.
 """
@@ -44,6 +44,35 @@ def prefix_sum(x, dim: int):
     return y.flatten(dim, dim + 1).narrow(dim, 0, length)
 
 
+_ROW = 32     # XLA's CPU backend sums a row of up to 32 in order
+
+
+def ordered_sum(x):
+    """Sum over the last dimension in a fixed order of elementwise adds, so
+    the result is the same on every device (``Tensor.sum`` on CUDA adds a
+    row in another order than on the CPU).
+
+    A row of up to 32 is summed left to right, the order of ``jnp.sum`` on
+    XLA's CPU backend, so the JAX package's gains are matched to the bit
+    there. A longer row of n is cut into contiguous chunks of w = ceil(n /
+    32) (the last one may be shorter); the chunks are added elementwise in
+    order, and the w partial sums are summed the same way. Every add reads
+    contiguous runs, so the card streams the histograms' width.
+    """
+    n = x.shape[-1]
+    if n <= _ROW:
+        acc = x[..., 0].clone()
+        for k in range(1, n):
+            acc.add_(x[..., k])
+        return acc
+    w = -(-n // _ROW)
+    acc = x[..., :w].clone()
+    for start in range(w, n, w):
+        part = x[..., start:start + w]
+        acc[..., :part.shape[-1]].add_(part)
+    return ordered_sum(acc)
+
+
 def best_splits(sum_g, count, reg_lambda: float, min_child_weight: float
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Pick the best (feature, bin) per node.
@@ -63,7 +92,7 @@ def best_splits(sum_g, count, reg_lambda: float, min_child_weight: float
     hr = ht - hl
 
     def score(g2, h):
-        return torch.square(g2).sum(-1) / (h + reg_lambda + 1e-12)
+        return ordered_sum(torch.square(g2)) / (h + reg_lambda + 1e-12)
 
     gain = score(gl, hl) + score(gr, hr) - score(gt, ht)   # [..., p, bins]
     valid = (hl >= min_child_weight) & (hr >= min_child_weight)

@@ -18,9 +18,12 @@ kernel first at the same moment (an HTTP thread imputing while the serving
 scheduler dispatches) build it once, and the second loads what the first
 built. Temp files carry the process and thread id besides. The wrappers
 count their launches through :func:`count_launch`, under a lock of its own.
+:func:`events` counts the ``nvcc`` runs and the libraries loaded, per
+kernel (:mod:`repro_torch.analysis.runtime` budgets them over a region).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -34,6 +37,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 # one lock over build() and load(): a kernel builds once per process
 _BUILD_LOCK = threading.RLock()
 _COUNT_LOCK = threading.Lock()
+# ("build" | "load", kernel name) -> count in this process, under _BUILD_LOCK
+_EVENTS: collections.Counter = collections.Counter()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -101,6 +106,7 @@ def _build(names: Sequence[str]) -> Dict[str, Tuple[str, str]]:
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source(name)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
+        _EVENTS["build", name] += 1
         running[name] = (lib, tmp, cmd, proc)
     failed = []
     for name, (lib, tmp, cmd, proc) in running.items():
@@ -128,7 +134,9 @@ def open_library(path: str, name: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _load(name: str) -> ctypes.CDLL:
-    return open_library(build([name])[name][0], name)
+    lib = open_library(build([name])[name][0], name)
+    _EVENTS["load", name] += 1
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -141,6 +149,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 load.cache_info = _load.cache_info
+
+
+def events() -> collections.Counter:
+    """A copy of the counts of ``("build", name)`` (an ``nvcc`` started)
+    and ``("load", name)`` (a library opened) so far in this process."""
+    with _BUILD_LOCK:
+        return collections.Counter(_EVENTS)
 
 
 def count_launch(wrapper) -> None:

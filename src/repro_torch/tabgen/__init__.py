@@ -27,4 +27,4 @@ from repro_torch.tabgen.imputation import impute  # noqa: F401
 from repro_torch.tabgen.samplers import (  # noqa: F401
     default_sampler, get_sampler, list_samplers, register_sampler)
 from repro_torch.tabgen.sampling import (  # noqa: F401
-    SampleHandle, sample, sample_async, sample_labels)
+    SampleHandle, sample, sample_async, sample_labels, sample_loop_reference)

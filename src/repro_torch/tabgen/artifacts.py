@@ -54,6 +54,19 @@ def unscale(x, mins, maxs):
     return (x + 1.0) / 2.0 * scaler_span(mins, maxs) + mins
 
 
+def scaler_span_host(mins, maxs):
+    """:func:`scaler_span` on numpy arrays, in the JAX package's bool
+    arithmetic: ``1 - gt`` is int64 there, so the span (and what it scales)
+    is float64."""
+    gt = maxs > mins
+    return (maxs - mins) * gt + (1 - gt)
+
+
+def unscale_host(x, mins, maxs):
+    """:func:`unscale` on numpy arrays (float64 out, as the JAX package's)."""
+    return (x + 1.0) / 2.0 * scaler_span_host(mins, maxs) + mins
+
+
 def _validate(arrays: dict, config: ForestConfig) -> None:
     """Host-side checks of arrays that arrive from outside the program. The
     tree kernel reads ``x[row, feat[h]]`` unchecked, so every feature index

@@ -60,7 +60,8 @@ from repro_torch.forest.binning import edges_with_sentinel, pack_codes, transfor
 from repro_torch.forest.boosting import fit_ensemble
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.obs import default_registry, default_tracer
-from repro_torch.tabgen.artifacts import RESULT_FIELDS, ForestArtifacts
+from repro_torch.tabgen.artifacts import (RESULT_FIELDS, ForestArtifacts,
+                                         scaler_span_host)
 from repro_torch.tabgen.sampling import stream_seed
 from repro_torch.train import checkpoint as _ckpt
 
@@ -89,15 +90,9 @@ def weighted_edges(x, w, n_bins: int):
     return s[idx.long()].T.contiguous()
 
 
-def _scaler_span_host(mins, maxs):
-    # the JAX package's bool arithmetic: on numpy, 1 - gt is int64, so the
-    # span and the rescaled rows are float64 until they are stored as f32
-    gt = maxs > mins
-    return (maxs - mins) * gt + (1 - gt)
-
-
 def _rescale_host(x, mins, maxs):
-    return (x - mins) / _scaler_span_host(mins, maxs) * 2.0 - 1.0
+    # float64 until the rows are stored as f32, as in the JAX package
+    return (x - mins) / scaler_span_host(mins, maxs) * 2.0 - 1.0
 
 
 def prepare_classes(X, y, row_chunk: int = 65536, stats=None):

@@ -24,20 +24,21 @@ k+1's device work.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import interpolants as itp
 from repro_torch.forest.packed import PackedForest
-from repro_torch.tabgen.artifacts import ForestArtifacts, unscale
+from repro_torch.tabgen.artifacts import ForestArtifacts, unscale, unscale_host
 from repro_torch.tabgen.samplers import default_sampler, get_sampler
 
 NOISE_BLOCK = 1024   # rows per x1 block
 
-# noise streams derived from one user seed
+# noise streams derived from one user seed (the trainer's is 3)
 _X1_STREAM, _SOLVE_STREAM, _IMPUTE_STREAM = 0, 1, 2
+_LOOP_STREAM = 4
 
 
 def stream_seed(*words: int) -> int:
@@ -204,3 +205,49 @@ def sample(artifacts: ForestArtifacts, n: int, *,
     """
     return sample_async(artifacts, n, sampler=sampler, seed=seed,
                         pad_to=pad_to).result()
+
+
+def sample_loop_reference(artifacts: ForestArtifacts, n: int, *,
+                          sampler: Optional[str] = None, seed: int = 0,
+                          x1: Optional[Callable] = None
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """The pre-redesign path: one solver call per class, host-side
+    unscaling (float64, as the JAX package's). Kept as the baseline of the
+    generation benchmark, and as executable documentation of what the
+    class-batched path replaced.
+
+    Class ``yi``'s x1 ``[n_c, p]`` is the tensor ``x1(yi, (n_c, p))`` if
+    given, else drawn from a generator seeded by ``(seed, yi)``; a
+    stochastic sampler draws its noise from that generator too.
+    """
+    fcfg = artifacts.config
+    _, spec = _resolve_sampler(fcfg, sampler)
+    rng = np.random.default_rng(seed)
+    label_idx = sample_labels(artifacts.counts, n, rng, fcfg.label_sampler)
+    device = artifacts.device
+    ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff, fcfg.t_schedule,
+                       device=device)
+    mins = artifacts.mins.cpu().numpy()
+    maxs = artifacts.maxs.cpu().numpy()
+    outs, labels = [], []
+    for yi in range(artifacts.n_y):
+        n_c = int((label_idx == yi).sum())
+        if n_c == 0:
+            continue
+        gen = torch.Generator(device=device)
+        gen.manual_seed(stream_seed(seed, _LOOP_STREAM, yi))
+        if x1 is None:
+            x1_c = torch.randn((n_c, artifacts.p), generator=gen,
+                               device=device)
+        else:
+            x1_c = x1(yi, (n_c, artifacts.p)).to(device, torch.float32)
+        x0 = spec.fn(x1_c[None], artifacts.class_forest(yi),
+                     depth=fcfg.max_depth, n_t=fcfg.n_t, ts=ts,
+                     eps=fcfg.eps_diff,
+                     generator=gen if spec.stochastic else None)
+        outs.append(unscale_host(x0[0].cpu().numpy(), mins[yi], maxs[yi]))
+        labels.append(np.full((n_c,), artifacts.classes[yi]))
+    X = np.concatenate(outs, axis=0)
+    y = np.concatenate(labels, axis=0)
+    perm = rng.permutation(len(X))
+    return X[perm], y[perm]

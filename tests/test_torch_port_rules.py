@@ -4,8 +4,9 @@ asked for the CPU.
 * No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of the JAX package ``repro``.
 * Importing the port's entry points loads neither.
-* Entry points (loading, sampling, training, LM and forest serving) given
-  ``device=None`` take the GPU and raise where there is none;
+* Entry points (loading, sampling, training, LM and forest serving, the
+  comparison plane's baselines) given ``device=None`` take the GPU and
+  raise where there is none;
   ``device="cpu"`` runs the plain PyTorch path.
 """
 import ast
@@ -66,7 +67,12 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.launch.train_forest, repro_torch.obs, "
             "repro_torch.serving, repro_torch.launch.serve_http, "
             "repro_torch.launch.serve_forest, repro_torch.launch.refresh, "
-            "repro_torch.launch.metrics;"
+            "repro_torch.launch.metrics, repro_torch.core.nn_baselines, "
+            "repro_torch.core.ctgan, repro_torch.core.copula, "
+            "repro_torch.core.naive, repro_torch.core.forest_flow, "
+            "repro_torch.train.optim, repro_torch.eval.metrics, "
+            "repro_torch.analysis.runtime, repro_torch.data.calorimeter, "
+            "repro_torch.data.tabular;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); sys.exit(1 if bad else 0)")
@@ -202,6 +208,41 @@ def test_forest_serving_defaults_to_gpu_and_raises_without_one(
     X, _ = server.generate(6, seed=0)
     assert X.shape == (6, 3)
     assert server.registry.device == torch.device("cpu")
+
+
+def test_comparison_plane_defaults_to_gpu_and_raises_without_one(
+        monkeypatch):
+    """The NN / TVAE / CTGAN baselines, the Original-style trainer and the
+    ``ForestGenerativeModel`` shim take the GPU unless asked for the CPU."""
+    import warnings
+    from repro_torch.core.ctgan import CTGANBaseline
+    from repro_torch.core.forest_flow import ForestGenerativeModel
+    from repro_torch.core.naive import NaiveForestGenerativeModel
+    from repro_torch.core.nn_baselines import (NNGenerativeModel,
+                                               TVAEBaseline)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(40, 3)).astype(np.float32)
+    cfg = ForestConfig(n_t=2, duplicate_k=2, n_trees=2, max_depth=2,
+                       n_bins=8)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        shim = ForestGenerativeModel(cfg)
+    models = [NNGenerativeModel(cfg, hidden=8, depth=1, steps=2, batch=8),
+              TVAEBaseline(latent=2, hidden=8, steps=2, batch=8),
+              CTGANBaseline(latent=2, hidden=8, steps=2, batch=8),
+              NaiveForestGenerativeModel(cfg), shim]
+    monkeypatch.setattr(dispatch.torch.cuda, "is_available", lambda: False)
+    for model in models:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.fit(X)
+    for model in models:
+        model.fit(X, device="cpu")
+    for model in (models[0], models[2], shim):
+        Xg, _ = model.generate(6, seed=0)
+        assert Xg.shape == (6, 3) and np.isfinite(Xg).all()
+    assert models[1].generate(6, seed=0).shape == (6, 3)
+    assert shim.artifacts.device == torch.device("cpu")
+    assert models[0].net.layers[0].weight.device == torch.device("cpu")
 
 
 def test_gpu_is_the_default_device_where_present(monkeypatch):

@@ -43,7 +43,7 @@ from repro_torch.config import ForestConfig as TForestConfig
 from repro_torch.core import interpolants as titp
 from repro_torch.forest import binning as tbin
 from repro_torch.forest.boosting import fit_boosted, fit_ensemble
-from repro_torch.forest.split import best_splits, prefix_sum
+from repro_torch.forest.split import best_splits, ordered_sum, prefix_sum
 from repro_torch.forest.tree import (Tree, grow_tree, predict_tree_codes,
                                      predict_tree_values)
 from repro_torch.tabgen import (ForestArtifacts, TabularGenerator,
@@ -190,7 +190,7 @@ def test_prefix_sum_adds_in_xlas_order(length):
                                   ref[..., 0])
 
 
-@pytest.mark.parametrize("out", [1, 2, 3])
+@pytest.mark.parametrize("out", [1, 2, 3, 6, 16, 32])
 @pytest.mark.parametrize("data", ["integer", "dyadic", "float"])
 def test_best_splits_match_jax(data, out):
     rng = np.random.default_rng(out)
@@ -209,6 +209,52 @@ def test_best_splits_match_jax(data, out):
         got = best_splits(t(sum_g)[None], t(count)[None], 1.0, mcw)
         for a, b in zip(got, ref):
             np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))
+
+
+def _chunked_sum(x):
+    """ordered_sum's documented order, in numpy: a row of up to 32 left to
+    right, a longer one in contiguous chunks of ceil(n / 32) added in
+    order, then their partial sums the same way."""
+    n = x.shape[-1]
+    if n <= 32:
+        acc = x[..., 0].copy()
+        for k in range(1, n):
+            acc = acc + x[..., k]
+        return acc
+    w = -(-n // 32)
+    acc = x[..., :w].copy()
+    for start in range(w, n, w):
+        part = x[..., start:start + w]
+        acc[..., :part.shape[-1]] = acc[..., :part.shape[-1]] + part
+    return _chunked_sum(acc)
+
+
+@pytest.mark.parametrize("n", [1, 7, 32, 33, 37, 64, 368, 1100])
+def test_ordered_sum_adds_in_its_documented_order(n):
+    """The multi-output gain's sum over outputs runs in a fixed order of
+    elementwise adds, so a card and the CPU pick the same splits."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(6, 5, n)) ** 2
+         * rng.uniform(0.1, 1e3, size=(6, 5, 1))).astype(np.float32)
+    np.testing.assert_array_equal(ordered_sum(t(x)).numpy(), _chunked_sum(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [1, 8, 37, 368])
+def test_cuda_best_splits_equal_the_cpu(out):
+    """The split search on the card picks what the CPU picks, to the bit,
+    at every output width (a sum over outputs in Tensor.sum's order did
+    not: the card adds a row of 8 in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; python3 chip_smoke.py holds card "
+                    "fits against the CPU")
+    rng = np.random.default_rng(out)
+    sum_g = rng.normal(size=(2, 4, 9, 32, out)).astype(np.float32)
+    count = rng.uniform(0, 4, (2, 4, 9, 32)).astype(np.float32)
+    cpu = best_splits(t(sum_g), t(count), 1.0, 1e-6)
+    card = best_splits(t(sum_g).cuda(), t(count).cuda(), 1.0, 1e-6)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_best_splits_breaks_ties_to_the_first_index():
