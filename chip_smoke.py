@@ -64,6 +64,18 @@
    impute, trace, ``/metrics`` with the device gauges, a profiler capture);
    and the refresh loop on a two-moons model (ingest, train_forest,
    serve_http, refresh: append, extend on the card, reload to version 2).
+7b. Drives sharded sampling and sharded serving at the same width on a
+   one-rank NCCL group's 1x1 ``DeviceMesh``: ``sample(mesh=)`` at
+   n=120,000, euler in turns with the unsharded call (a first call of each
+   not kept, then unsharded, mesh, mesh, unsharded twice) and from the
+   ``shard(mesh)`` slice, and em (unsharded, mesh, mesh, unsharded), every
+   call bit-equal to the unsharded one with 99 ``tree_predict`` launches;
+   the first 16 requests of phase 7's burst through a ``ModelRegistry(mesh=)``
+   and an unsharded registry in turns (a warm-up burst each first), every
+   request bit-equal to the unsharded replay of its batch, rows/s of each;
+   ``serve_forest --mesh 1x1 --demo`` and ``serve_http --mesh 1x1`` (a
+   generate, a reload to version 2, SIGINT)
+   as subprocesses.
 8. Drives the training path through ``TabularGenerator.fit`` at the same
    width (p=368, duplicate_k=20, n_trees=20, max_depth=7, n_bins=64,
    learning_rate=1.5, reg_lambda=1.0) on calorimeter-like showers made here
@@ -1015,6 +1027,243 @@ def drive_refresh(device, tmp):
     return hist_launches, forest_predict.launches, dict(
         wall_s=wall, version=version, generates=len(codes),
         hist_launches=hist_launches)
+
+
+# ---------------------------------------------------------------------------
+# sharded sampling and sharded serving
+# ---------------------------------------------------------------------------
+
+SHARD_REQUESTS = 16              # the mesh burst: the first 16 of the 48
+
+
+def _burst(reg, sizes, prios):
+    """The requests ``sizes`` through an InflightScheduler over ``reg``'s
+    model A from SERVE_CLIENTS threads, every request checked bit-equal to
+    the unsharded replay of its batch. Returns (rows/s, tree_predict
+    launches, batches)."""
+    from repro_torch.kernels.tree_predict.ops import forest_predict
+    from repro_torch.obs import Tracer
+    from repro_torch.serving import AdmissionController, InflightScheduler
+    tracer = Tracer(capacity=4096)
+    sched = InflightScheduler(reg, AdmissionController(), tracer=tracer,
+                              max_coalesce_rows=N_Y * FOREST_BUCKETS[-1])
+    futs, lock = [], threading.Lock()
+
+    def client(part):
+        for n, pr in part:
+            f = sched.submit(int(n), model="A", priority=str(pr))
+            with lock:
+                futs.append(f)
+
+    jobs = list(zip(sizes, prios))
+    threads = [threading.Thread(target=client, args=(jobs[i::SERVE_CLIENTS],))
+               for i in range(SERVE_CLIENTS)]
+    forest_predict.launches = 0
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        for f in futs:
+            f.result(timeout=300)
+    finally:
+        sched.stop()
+    wall = time.perf_counter() - t0
+    launches = forest_predict.launches
+    if len(futs) != len(sizes):
+        raise AssertionError(f"burst: {len(futs)} of {len(sizes)} submitted")
+    replay_served(tracer, futs, [reg.peek("A")])
+    return int(np.sum(sizes)) / wall, launches, \
+        sched.stats_snapshot()["batches"]
+
+
+def _mesh_cli(tmp, dev):
+    """``serve_forest --mesh 1x1 --demo`` and ``serve_http --mesh 1x1``
+    (generate, a reload to version 2, SIGINT) as subprocesses, at once."""
+    import signal
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    forest = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_forest", "--mesh",
+         "1x1", "--demo", "--device", dev, "--requests", "8", "--buckets",
+         "32,128"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=tmp)
+    http = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_http", "--mesh",
+         "1x1", "--demo", "--device", dev, "--port", "0",
+         "--resource-interval-s", "0"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=tmp)
+    lines, out = [], {}
+    watchdog = threading.Timer(300, http.kill)   # a start-up that hangs
+    watchdog.start()
+    try:
+        for line in http.stdout:              # until it serves
+            lines.append(line.rstrip())
+            if line.startswith("serving on "):
+                break
+        else:
+            raise AssertionError("serve_http --mesh 1x1 did not start:\n"
+                                 + "\n".join(lines[-30:]))
+        url = line.split()[-1]
+        path = next(x.split(" to ")[-1] for x in lines
+                    if x.startswith("demo artifacts saved to"))
+        t0 = time.perf_counter()
+        gen = http_call("POST", f"{url}/v1/generate",
+                        {"model": "demo", "n": 100})
+        out["generate_s"] = time.perf_counter() - t0
+        reload = http_call("POST", f"{url}/v1/models/demo/reload",
+                           {"path": path})
+        again = http_call("POST", f"{url}/v1/generate",
+                          {"model": "demo", "n": 50})
+        if (gen[0] != 200 or len(gen[1]["rows"]) != 100 or reload[0] != 200
+                or reload[1]["version"] != 2 or again[0] != 200
+                or again[1]["version"] != 2):
+            raise AssertionError(f"serve_http --mesh 1x1: generate {gen[0]}"
+                                 f", reload {reload}, again {again[0]}")
+        http.send_signal(signal.SIGINT)
+        tail, _ = http.communicate(timeout=120)
+        if http.returncode != 0 or "bye" not in tail:
+            raise AssertionError(f"serve_http --mesh 1x1 exited "
+                                 f"{http.returncode}:\n{tail[-3000:]}")
+        ftail, _ = forest.communicate(timeout=300)
+        if forest.returncode != 0 or "served 8 requests" not in ftail:
+            raise AssertionError(f"serve_forest --mesh 1x1 exited "
+                                 f"{forest.returncode}:\n{ftail[-3000:]}")
+        log("serve_forest --mesh 1x1 --demo: " + next(
+            x for x in ftail.splitlines() if x.startswith("served ")))
+        log(f"serve_http --mesh 1x1: generate 200 in {out['generate_s']!r} "
+            "s, reload to version 2, generate "
+            "200 on version 2, SIGINT -> exit 0")
+        return out
+    finally:
+        watchdog.cancel()
+        for proc in (forest, http):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def drive_sharded(device, tmp):
+    """Sharded sampling and sharded serving at photons width on a one-rank
+    mesh (NCCL on the card): ``sample(mesh=)`` at n=120,000 with euler (in
+    turns with the unsharded call, and from a pre-sharded slice) and em,
+    bit-equal to ``sample()``; a ``ModelRegistry(mesh=1x1)`` and an
+    unsharded one serving the same burst in turns, every row bit-equal to
+    its batch's replay; the ``serve_forest`` and ``serve_http`` CLIs with
+    ``--mesh 1x1``. Returns (tree_predict launches, numbers)."""
+    import torch.distributed as dist
+    from repro_torch.kernels.tree_predict.ops import forest_predict
+    from repro_torch.launch.mesh import forest_mesh
+    from repro_torch.serving import ModelRegistry
+    from repro_torch.tabgen import sample
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    cfg = photons_config(n_t=N_T, multi_output=True)
+    out = {"wall_s": {}, "first_s": {}}
+    tp_launches = 0
+    backend = "nccl" if on_card else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = forest_mesh(1, 1, device)
+        flow = random_artifacts(cfg, N_Y, P, N_ROWS // N_Y, seed=0,
+                                device=device)
+        diff = dataclasses.replace(flow, config=dataclasses.replace(
+            cfg, method="diffusion"))
+        refs = {}
+
+        def call(label, art, sampler, seed, on_mesh, keep=True):
+            nonlocal tp_launches
+            forest_predict.launches = 0
+            t0 = time.perf_counter()
+            X, y = sample(art, N_ROWS, sampler=sampler, seed=seed,
+                          mesh=mesh if on_mesh else None)
+            dt = time.perf_counter() - t0
+            got = forest_predict.launches
+            tp_launches += got
+            if X.shape != (N_ROWS, P) or not np.isfinite(X).all():
+                raise AssertionError(f"{label}: bad output {X.shape}")
+            if on_card and got != N_T - 1:
+                raise AssertionError(f"{label}: {got} tree_predict launches")
+            ref = refs.setdefault(sampler, (X, y))
+            if not (np.array_equal(X, ref[0]) and np.array_equal(y, ref[1])):
+                raise AssertionError(f"{label}: rows differ from the "
+                                     f"unsharded {sampler} call")
+            out["wall_s" if keep else "first_s"].setdefault(
+                label, []).append(dt)
+            log(f"{label}{'' if keep else ', first call'}: n={N_ROWS} "
+                f"{dt!r} s, {N_ROWS / dt!r} rows/s, {got} tree_predict "
+                "launches, rows equal to the unsharded call")
+
+        # a first call each, checked, not kept (the allocators grow; the
+        # first sharded call starts the NCCL communicator); then in turns
+        for keep, turns in ((False, (False, True)),
+                            (True, (False, True, True, False) * 2)):
+            for on_mesh in turns:
+                call("euler, 1x1 mesh" if on_mesh else "euler", flow,
+                     "euler", 3, on_mesh, keep)
+        sliced = flow.shard(mesh)
+        if sliced.class_range != (0, N_Y) or (
+                on_card and sliced.leaf.data_ptr() != flow.leaf.data_ptr()):
+            raise AssertionError("shard() on a 1x1 mesh moved the weights")
+        call("euler, 1x1 mesh, pre-sharded", sliced, "euler", 3, True)
+        del sliced
+        for on_mesh in (False, True, True, False):
+            call("em, 1x1 mesh" if on_mesh else "em", diff, "em", 5, on_mesh)
+        del diff
+
+        # -- the registry on the mesh against the unsharded one ----------------
+        rng = np.random.default_rng(7)
+        sizes = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1,
+                             size=SERVE_REQUESTS)[:SHARD_REQUESTS]
+        prios = np.where(rng.random(SERVE_REQUESTS) < 2 / 3, "interactive",
+                         "bulk")[:SHARD_REQUESTS]
+        regs = {"mesh": ModelRegistry(device=device, mesh=mesh,
+                                      buckets=FOREST_BUCKETS),
+                "unsharded": ModelRegistry(device=device,
+                                           buckets=FOREST_BUCKETS)}
+        for arm, reg in regs.items():
+            t0 = time.perf_counter()
+            reg.register("A", flow)
+            log(f"registry ({arm}): A registered hot in "
+                f"{time.perf_counter() - t0!r} s")
+        d = regs["mesh"].describe()["A"]
+        log(f"mesh registry: {d['nbytes']} model bytes counted against the "
+            f"budget, {d['rank_nbytes']} on this rank")
+        del flow
+        if on_card:
+            torch.cuda.empty_cache()
+        rates = {"mesh": [], "unsharded": []}
+        # a warm-up burst each, checked, not kept; then in turns
+        for i, arm in enumerate(("mesh", "unsharded", "mesh", "unsharded",
+                                 "unsharded", "mesh")):
+            rate, launches, batches = _burst(regs[arm], sizes, prios)
+            tp_launches += launches
+            if on_card and launches != batches * (N_T - 1):
+                raise AssertionError(f"{arm} burst: {launches} launches in "
+                                     f"{batches} batches")
+            if i >= 2:
+                rates[arm].append(rate)
+            log(f"burst ({arm}{', warm-up' if i < 2 else ''}): "
+                f"{SHARD_REQUESTS} requests, {int(sizes.sum())} rows in "
+                f"{batches} batches, {rate!r} rows/s, {launches} "
+                "tree_predict launches; every request bit-equal to the "
+                "unsharded replay of its batch")
+        regs["mesh"].close()
+        out.update(burst_rows_per_s=rates, burst_rows=int(sizes.sum()),
+                   model_bytes=d["nbytes"], rank_bytes=d["rank_nbytes"])
+        del regs
+    finally:
+        dist.destroy_process_group()
+    release_pinned()
+    if on_card:
+        torch.cuda.empty_cache()
+    out["cli"] = _mesh_cli(tmp, device.type)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded phase: {out['phase_s']!r} s, {tp_launches} tree_predict "
+        "launches")
+    return tp_launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -2466,6 +2715,12 @@ def main() -> int:
     release_pinned()
     torch.cuda.empty_cache()
 
+    # -- sharded sampling and sharded serving --------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        sh_tp, sharded = drive_sharded(device, tmp)
+    torch.cuda.empty_cache()
+
     # -- the training path -------------------------------------------------
     forest_predict.launches = histogram.launches = flash_attention.launches = 0
     with tempfile.TemporaryDirectory() as ckpt_root:
@@ -2509,7 +2764,7 @@ def main() -> int:
         "name": "tree_predict", "route": "cuda",
         "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
         "replaces": "src/repro/kernels/tree_predict/tree_kernel.py:54",
-        "launches": sum(counts.values()) + fs_tp + cmp_tp,
+        "launches": sum(counts.values()) + fs_tp + sh_tp + cmp_tp,
         "max_abs_err": worst,
         "ms": timing["ms"], "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
@@ -2552,6 +2807,7 @@ def main() -> int:
                       "forest_serving": dict(
                           forest_serving, tree_predict_launches=fs_tp,
                           hist_launches=fs_hist),
+                      "sharded": dict(sharded, tree_predict_launches=sh_tp),
                       "comparison": comparison}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

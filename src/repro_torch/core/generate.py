@@ -86,7 +86,9 @@ def diffusion_em(x1, forests: PackedForest, depth: int, n_t: int,
     """Reverse VP-SDE Euler-Maruyama from t=1 to t=eps using the score model.
 
     Step k's noise is ``noise[k]`` when ``noise`` (``[n_t-1, *x1.shape]``)
-    is given, else a fresh ``randn`` from ``generator``.
+    is given, ``noise(k)`` when it is a callable (the sharded solve's slice
+    of the unsharded call's draw), else a fresh ``randn`` from
+    ``generator``.
     """
     ts = _grid(ts, "diffusion", n_t, eps, x1)
     hs = (ts[1:] - ts[:-1]).flip(0)
@@ -96,7 +98,10 @@ def diffusion_em(x1, forests: PackedForest, depth: int, n_t: int,
         score = predict_forest(x, forests.at(i), depth)
         beta = itp.vp_beta(ts[k])
         drift = -0.5 * beta * x - beta * score
-        z = noise[k] if noise is not None else torch.randn(
-            x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        if noise is None:
+            z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                            device=x.device)
+        else:
+            z = noise(k) if callable(noise) else noise[k]
         x = x - drift * hs[k] + torch.sqrt(beta * hs[k]) * z
     return x

@@ -29,12 +29,21 @@ plain PyTorch path). CPU demo (fits a small model, saves, loads, serves):
 
   PYTHONPATH=src python -m repro_torch.launch.serve_forest --demo \
       --requests 16 --device cpu
+
+``--mesh DxM`` serves sharded over a ``(data, model)`` mesh of ranks, one
+process each (``torchrun``): rank 0 serves, the other ranks replay its
+steps (:mod:`repro_torch.serving.spmd`) until it stops. ``1x1`` without
+``torchrun`` makes a one-rank group itself (NCCL on the GPU):
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+      repro_torch.launch.serve_forest --mesh 2x1 --device cpu --demo
 """
 from __future__ import annotations
 
 import argparse
 import os
 import tempfile
+import time
 from concurrent.futures import Future
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -55,7 +64,12 @@ class ForestServer:
     in-flight scheduler underneath. Reach into ``server.registry`` /
     ``server.scheduler`` for the multi-model and admission knobs (e.g.
     ``server.registry.swap("default", new_artifacts)`` for a zero-downtime
-    artifact hot-swap).
+    artifact hot-swap, from any thread, on a mesh too).
+
+    ``mesh`` (``None`` | ``DeviceMesh`` | ``"auto"``) serves sharded: build
+    the server on rank 0 while every other rank builds a
+    ``ModelRegistry(mesh=...)`` and runs
+    :func:`~repro_torch.serving.spmd.follow`; :meth:`close` releases them.
     """
 
     MODEL = "default"
@@ -64,7 +78,7 @@ class ForestServer:
                  device: Optional[Device] = None,
                  samplers: Sequence[str] = (),
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 schema=None,
+                 schema=None, mesh=None,
                  max_coalesce_rows: Optional[int] = None,
                  coalesce_window_s: float = 0.002,
                  inflight_depth: int = 2,
@@ -77,8 +91,8 @@ class ForestServer:
         # scheduler, admission, and model registry export one family set
         self.metrics = metrics or MetricsRegistry()
         self.tracer = tracer or Tracer()
-        self.registry = ModelRegistry(device=device, buckets=buckets,
-                                      metrics=self.metrics)
+        self.registry = ModelRegistry(device=device, mesh=mesh,
+                                      buckets=buckets, metrics=self.metrics)
         self.registry.register(self.MODEL, artifacts, schema=schema,
                                samplers=samplers)
         self.scheduler = InflightScheduler(
@@ -90,6 +104,7 @@ class ForestServer:
             metrics=self.metrics, tracer=self.tracer,
             slo=slo, slo_error_budget=slo_error_budget, slow_log=slow_log)
         self.device = self.registry.device
+        self.mesh = self.registry.mesh
         self.schema = schema
 
     @classmethod
@@ -143,7 +158,7 @@ class ForestServer:
                  seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         """Synchronous path: exact per-(n, seed) deterministic output."""
         name = self._validate_sampler(sampler)
-        handle = self.registry.acquire(self.MODEL)
+        handle = self.registry.handle(self.MODEL)
         with self.tracer.span("serve.sync", model=self.MODEL, sampler=name,
                               rows=int(n)) as sp:
             X, y = handle.generate(n, name, seed=seed)
@@ -174,6 +189,11 @@ class ForestServer:
         """Drain the queue and stop the scheduler threads."""
         self.scheduler.stop(timeout)
 
+    def close(self, timeout: float = 10.0) -> None:
+        """Stop serving; on a mesh, release the other ranks too."""
+        self.stop(timeout)
+        self.registry.close()
+
     def _serve_batch(self, batch) -> None:
         """Dispatch + resolve one pre-formed batch synchronously (a test
         seam; production traffic goes through ``submit``)."""
@@ -183,7 +203,7 @@ class ForestServer:
 
     def impute(self, X_missing, y=None, *, seed: int = 0,
                refine_rounds: int = 3) -> np.ndarray:
-        return self.registry.acquire(self.MODEL).impute(
+        return self.registry.handle(self.MODEL).impute(
             X_missing, y, seed=seed, refine_rounds=refine_rounds)
 
     def rows_per_sec(self) -> float:
@@ -225,6 +245,10 @@ def main(argv=None):
                     help="disable in-flight batching (drain-then-serve "
                          "reference behaviour)")
     ap.add_argument("--coalesce-window-ms", type=float, default=2.0)
+    ap.add_argument("--mesh", default="none",
+                    help="'auto' | 'none' | DxM: shard the solve over D x M "
+                         "ranks (classes on model, rows on data); more than "
+                         "one rank needs torchrun")
     ap.add_argument("--metrics-dump", default=None, metavar="PATH",
                     help="after serving, write the metrics registry as "
                          "Prometheus text ('-' for stdout)")
@@ -232,8 +256,34 @@ def main(argv=None):
                     help="after serving, dump the span ring as JSON lines")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
     from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.launch.train_forest import _init_from_env, parse_mesh
     device = resolve_device(args.device)
+    owned = _init_from_env(device)
+    try:
+        mesh, made = parse_mesh(args.mesh, device)
+        owned = owned or made
+        if mesh is not None and dist.get_rank() > 0:
+            return _follow(mesh, device, args)
+        return _serve(args, device, mesh)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _follow(mesh, device, args):
+    """Rank > 0 of a mesh: replay rank 0's steps until it stops."""
+    from repro_torch.serving.spmd import follow
+    registry = ModelRegistry(device=device, mesh=mesh, buckets=tuple(
+        int(b) for b in args.buckets.split(",")))
+    t0 = time.time()
+    n = follow(registry)
+    print(f"rank {registry.stream.rank}: replayed {n} batch(es) in "
+          f"{time.time() - t0:.2f}s", flush=True)
+
+
+def _serve(args, device, mesh):
     path = args.artifacts
     if args.demo or path is None:
         path = _demo_artifacts(os.path.join(tempfile.mkdtemp(), "demo"),
@@ -243,12 +293,26 @@ def main(argv=None):
     samplers = (args.sampler,) if args.sampler else ()
     buckets = tuple(int(b) for b in args.buckets.split(","))
     server = ForestServer.from_path(
-        path, device=device, samplers=samplers, buckets=buckets,
+        path, device=device, mesh=mesh, samplers=samplers, buckets=buckets,
         coalesce_window_s=args.coalesce_window_ms / 1e3,
         sync_resolve=args.drain)
+    try:
+        _demo_traffic(server, args, device, buckets)
+    finally:
+        server.close()
+    return server
+
+
+def _demo_traffic(server, args, device, buckets):
     warm = server.warmup()
+    where = str(device)
+    if server.mesh is not None:
+        shape = dict(zip(server.mesh.mesh_dim_names, server.mesh.shape))
+        d = server.registry.describe()[server.MODEL]
+        where += (f" on mesh {shape} ({d['nbytes']} model bytes, "
+                  f"{d['rank_nbytes']} on this rank)")
     print(f"warmed {len(server.samplers)} sampler(s) x {len(buckets)} "
-          f"bucket(s) in {warm:.2f}s on {device}")
+          f"bucket(s) in {warm:.2f}s on {where}")
 
     rng = np.random.default_rng(args.seed)
     sizes = rng.integers(1, max(buckets) + 1, size=args.requests)
@@ -274,7 +338,6 @@ def main(argv=None):
     if args.trace_jsonl:
         n_spans = server.tracer.export_jsonl(args.trace_jsonl)
         print(f"wrote {n_spans} spans to {args.trace_jsonl}")
-    return server
 
 
 if __name__ == "__main__":

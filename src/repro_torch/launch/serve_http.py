@@ -62,6 +62,16 @@ Multiple models on the GPU, with per-tenant limits:
       --model calo=calo_model --model fraud=fraud_model \
       --rate 500000 --burst 2000000
 
+Sharded over a ``(data, model)`` mesh of ranks (``--mesh DxM`` under
+``torchrun``; ``1x1`` makes a one-rank group itself): rank 0 serves HTTP,
+the other ranks replay its steps until it shuts down
+(:mod:`repro_torch.serving.spmd`); an admin reload reaches every rank. If
+the ranks fall out of step (a failure after a command was published), rank
+0 stops serving and exits non-zero:
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+      repro_torch.launch.serve_http --demo --device cpu --mesh 2x1 --port 0
+
 The server prints ``serving on http://HOST:PORT`` once ready (``--port 0``
 binds an ephemeral port — the line is the machine-readable contract the CI
 smoke and the tests parse).
@@ -189,7 +199,7 @@ class ServingApp:
                     f"({handle.artifacts.n_y} classes): imputation needs "
                     "\"labels\"")
             self.admission.charge(tenant, len(X))
-            handle = self.registry.acquire(model)
+            handle = self.registry.handle(model)
             filled = handle.impute(
                 X, None if y is None else np.asarray(y),
                 seed=int(body.get("seed", 0)),
@@ -214,7 +224,8 @@ class ServingApp:
         and :meth:`ModelRegistry.swap` them under ``name``. In-flight
         requests finish on the old version; no request is dropped, and no
         kernel is built or loaded. The live end of the
-        ``repro_torch.launch.refresh`` freshness loop."""
+        ``repro_torch.launch.refresh`` freshness loop. On a mesh the swap
+        reaches every rank."""
         from repro_torch.tabgen import TabularGenerator
         try:
             path = body.get("path") or self.model_paths.get(name)
@@ -226,7 +237,8 @@ class ServingApp:
             gen = TabularGenerator.load(path, device="cpu")
             handle = self.registry.swap(name, gen.artifacts,
                                         schema=gen.schema,
-                                        keep_schema=gen.schema is None)
+                                        keep_schema=gen.schema is None,
+                                        path=path)
         except UnknownModel:
             self._m_reloads.inc(1, model=name, status="unknown_model")
             return 404, {"error": f"unknown model {name!r}",
@@ -314,7 +326,9 @@ class ServingApp:
         return 200, render_prometheus(*regs)
 
     def stop(self) -> None:
+        """Stop the scheduler; on a mesh, release the other ranks."""
         self.scheduler.stop()
+        self.registry.close()
 
 
 def make_handler(app: ServingApp, *, quiet: bool = True):
@@ -441,8 +455,12 @@ def main(argv=None):
     ap.add_argument("--buckets", default="64,256,1024")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain path; default: the GPU")
+    ap.add_argument("--mesh", default="none",
+                    help="'auto' | 'none' | DxM: serve sharded over D x M "
+                         "ranks (more than one needs torchrun)")
     ap.add_argument("--device-budget-mb", type=float, default=None,
-                    help="LRU device-placement budget over all hot models")
+                    help="LRU device-placement budget over all hot models "
+                         "(whole models on a mesh, as the JAX package)")
     ap.add_argument("--max-hot", type=int, default=None,
                     help="cap the number of device-placed models")
     ap.add_argument("--rate", type=float, default=None,
@@ -484,8 +502,35 @@ def main(argv=None):
                     help="log one line per HTTP request")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
     from repro_torch.kernels.dispatch import resolve_device
+    from repro_torch.launch.train_forest import _init_from_env, parse_mesh
     device = resolve_device(args.device)
+    owned = _init_from_env(device)
+    try:
+        mesh, made = parse_mesh(args.mesh, device)
+        owned = owned or made
+        _main(ap, args, device, mesh)
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _registry(args, device, mesh, metrics=None) -> ModelRegistry:
+    return ModelRegistry(
+        device=device, mesh=mesh,
+        buckets=tuple(int(b) for b in args.buckets.split(",")),
+        device_budget_bytes=None if args.device_budget_mb is None
+        else int(args.device_budget_mb * 2**20),
+        max_hot=args.max_hot, metrics=metrics)
+
+
+def _main(ap, args, device, mesh):
+    if mesh is not None and mesh.get_rank() > 0:
+        from repro_torch.serving.spmd import follow
+        n = follow(_registry(args, device, mesh))
+        print(f"rank {mesh.get_rank()}: replayed {n} batch(es)", flush=True)
+        return
     specs = []
     for item in args.model:
         name, _, path = item.partition("=")
@@ -503,15 +548,14 @@ def main(argv=None):
     # then a single family set and /statz a view over the same instruments
     metrics = MetricsRegistry()
     tracer = Tracer(capacity=4096)
-    registry = ModelRegistry(
-        device=device,
-        buckets=tuple(int(b) for b in args.buckets.split(",")),
-        device_budget_bytes=None if args.device_budget_mb is None
-        else int(args.device_budget_mb * 2**20),
-        max_hot=args.max_hot, metrics=metrics)
+    registry = _registry(args, device, mesh, metrics)
     for name, path in specs:
         registry.register(name, path=path)
-        print(f"registered model {name!r} from {path}", flush=True)
+        d = registry.describe()[name]
+        print(f"registered model {name!r} from {path}"
+              + ("" if mesh is None else
+                 f": {d['nbytes']} bytes, {d['rank_nbytes']} on this rank"),
+              flush=True)
     admission = AdmissionController(
         queue_limits={"interactive": args.queue_limit_interactive,
                       "bulk": args.queue_limit_bulk},
@@ -558,6 +602,11 @@ def main(argv=None):
     httpd = make_server(app, args.host, args.port, quiet=not args.verbose)
     host, port = httpd.server_address[:2]
     print(f"serving on http://{host}:{port}", flush=True)
+    stream = registry.stream
+    if stream is not None:
+        # the ranks fell out of step: stop serving
+        stream.on_break = lambda: threading.Thread(
+            target=httpd.shutdown, daemon=True).start()
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -572,6 +621,9 @@ def main(argv=None):
             n = tracer.export_jsonl(args.trace_jsonl)
             print(f"wrote {n} spans to {args.trace_jsonl}", flush=True)
         print("bye", flush=True)
+    if stream is not None and stream.broken is not None:
+        raise SystemExit(f"the mesh's ranks fell out of step: "
+                         f"{stream.broken!r}")
 
 
 if __name__ == "__main__":

@@ -27,11 +27,27 @@ The port compiles nothing at run time: the kernels are libraries built and
 loaded once per process, and a swapped-in model of any shape launches the
 same ones. A swap costs one device placement.
 
-Sharded serving (``mesh=``) is not ported: it waits on sharded sampling
-(``ROADMAP.md``, Queue 1, item 1).
+**Sharded serving** (``mesh=``, a ``(data, model)`` ``DeviceMesh`` of
+ranks, one process per device): promotion places ``host.shard(mesh)``, the
+rank's classes on its device, and every batch is a sharded
+:func:`~repro_torch.tabgen.sample_async`. The host copy stays whole and a
+demotion frees the slice. The byte budget counts whole models, as the JAX
+registry does, so ``device_budget_bytes`` means the same in both packages;
+``rank_nbytes`` is what this rank holds. Rank 0 runs the control plane and
+publishes every step to the other ranks, which replay it
+(:mod:`repro_torch.serving.spmd`): build the registry on every rank at the
+same point, serve on rank 0, run :func:`~repro_torch.serving.spmd.follow`
+on the others, and :meth:`ModelRegistry.close` on rank 0 at the end. A
+batch is :meth:`ModelRegistry.dispatch`: its acquire, its publication and
+its enqueue hold the stream's lock, as ``register`` and ``swap`` do, so
+any thread of rank 0 may issue them. Only batches acquire on a mesh
+(:meth:`ModelRegistry.handle` peeks), so every rank's promotions and
+demotions follow the same sequence. Impute runs on rank 0 alone and is
+refused where the mesh splits the model's classes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -43,8 +59,9 @@ import torch
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.obs import MetricsRegistry
 from repro_torch.tabgen import TabularGenerator, default_sampler
-from repro_torch.tabgen.artifacts import _TENSOR_FIELDS, ForestArtifacts
-from repro_torch.tabgen.sampling import sample_labels
+from repro_torch.tabgen.artifacts import (_TENSOR_FIELDS, ForestArtifacts,
+                                          class_span, mesh_device)
+from repro_torch.tabgen.sampling import resolve_mesh, sample_labels
 
 DEFAULT_BUCKETS = (64, 256, 1024)
 
@@ -69,8 +86,12 @@ def _host_copy(artifacts: ForestArtifacts, device: torch.device
     return artifacts.to("cpu")
 
 
-def _place(host: ForestArtifacts, device: torch.device) -> ForestArtifacts:
-    """Promote: the one-time placement a cold model pays on first use."""
+def _place(host: ForestArtifacts, device: torch.device,
+           mesh=None) -> ForestArtifacts:
+    """Promote: the one-time placement a cold model pays on first use. On a
+    mesh, the rank's slice."""
+    if mesh is not None:
+        return host.shard(mesh)
     if device.type == "cpu":
         return host
     return host.to(device, non_blocking=True)
@@ -84,32 +105,45 @@ class ModelHandle:
     mutated — ``swap`` and promotion build new ones — so an in-flight
     batch's view of the model cannot change underneath it. A cold handle
     (host tensors on a CUDA registry) still serves: each call copies the
-    model to ``device`` for that call only.
+    model (on a mesh: the rank's slice) to ``device`` for that call only.
+
+    On a mesh ``artifacts`` is the rank's slice when hot, the whole host
+    copy ``host`` when cold; ``nbytes`` counts the whole model,
+    ``rank_nbytes`` the slice. A batch there is one rank's part of a
+    collective: :meth:`generate_async` goes through the registry's
+    ``dispatch`` (``dispatch=``), which tells the other ranks.
     """
 
     def __init__(self, name: str, artifacts: ForestArtifacts, *,
                  device: Device, schema=None, samplers: Sequence[str] = (),
-                 buckets: Sequence[int] = DEFAULT_BUCKETS, version: int = 1):
+                 buckets: Sequence[int] = DEFAULT_BUCKETS, version: int = 1,
+                 mesh=None, dispatch=None,
+                 host: Optional[ForestArtifacts] = None):
         cfg = artifacts.config
         self.name = name
         self.artifacts = artifacts
         self.device = torch.device(device)
         self.schema = schema
         self.version = version
+        self.mesh = mesh
+        self._dispatch = dispatch
+        self.host = host if host is not None else artifacts
         self.samplers = tuple(samplers) or (
             default_sampler(cfg.method, cfg.diff_sampler),)
         self.buckets = tuple(sorted(buckets))
-        self.nbytes = artifacts_nbytes(artifacts)
+        self.nbytes = artifacts_nbytes(self.host)
+        self.rank_nbytes = artifacts_nbytes(artifacts)
         # requests delegate to the facade so serving output can never
         # diverge from TabularGenerator's (schema decode, impute masking)
         self._gen = TabularGenerator(cfg, schema=schema)
         self._gen.artifacts = artifacts
 
     def _generator(self) -> TabularGenerator:
-        if self.artifacts.device == self.device:
+        if self.artifacts.device.type == self.device.type:
             return self._gen
         gen = TabularGenerator(self.artifacts.config, schema=self.schema)
-        gen.artifacts = self.artifacts.to(self.device)
+        gen.artifacts = (self.artifacts.shard(self.mesh) if self.mesh
+                         is not None else self.artifacts.to(self.device))
         return gen
 
     # -- dispatch ------------------------------------------------------------
@@ -130,10 +164,20 @@ class ModelHandle:
 
     def generate_async(self, n: int, sampler: str, *, seed: int,
                        pad_to: Optional[int] = None):
-        """Non-blocking dispatch; the scheduler's waiter resolves it."""
+        """Non-blocking dispatch; the scheduler's waiter resolves it. On a
+        mesh, through the registry's ``dispatch`` (which refuses a handle
+        that a swap has replaced)."""
+        pad_to = self.bucket(n, seed) if pad_to is None else pad_to
+        if self._dispatch is not None:
+            return self._dispatch(self.name, n, sampler, seed=seed,
+                                  pad_to=pad_to, version=self.version)[1]
+        return self.enqueue(n, sampler, seed=seed, pad_to=pad_to)
+
+    def enqueue(self, n: int, sampler: str, *, seed: int, pad_to: int):
+        """This rank's part of a batch: the solve (on a mesh, the sharded
+        solve and its gathers) and the copy to the host, enqueued."""
         return self._generator().generate_async(
-            n, sampler=sampler, seed=seed,
-            pad_to=self.bucket(n, seed) if pad_to is None else pad_to)
+            n, sampler=sampler, seed=seed, pad_to=pad_to, mesh=self.mesh)
 
     def generate(self, n: int, sampler: Optional[str] = None, *,
                  seed: int = 0, pad_to: Optional[int] = None):
@@ -142,6 +186,15 @@ class ModelHandle:
 
     def impute(self, X_missing, y=None, *, seed: int = 0,
                refine_rounds: int = 3) -> np.ndarray:
+        """Impute on this process's device (on a mesh, rank 0 alone: no
+        collective). A mesh that splits the classes is refused: no rank
+        holds them all, and the sharded impute is not ported."""
+        n_y = self.artifacts.n_y
+        if self.mesh is not None and class_span(self.mesh, n_y) != (0, n_y):
+            raise ValueError(
+                f"model {self.name!r}: the mesh splits its {n_y} classes "
+                "over its model ranks; impute on a split model is not "
+                "ported")
         return self._generator().impute(X_missing, y, seed=seed,
                                         refine_rounds=refine_rounds)
 
@@ -172,7 +225,9 @@ class ModelRegistry:
     """Thread-safe name -> model table with LRU device placement.
 
     ``device`` is where hot models live and every request runs (``None``:
-    the GPU, or raise; ``"cpu"`` runs the plain PyTorch path).
+    the GPU, or raise; ``"cpu"`` runs the plain PyTorch path). ``mesh``
+    (``None`` | ``DeviceMesh`` | ``"auto"``) serves sharded: see the module
+    docstring; ``device`` then defaults to the rank's device on the mesh.
     ``device_budget_bytes`` caps the summed tensor bytes of hot models
     (``None`` = unbounded); ``max_hot`` caps their count. ``buckets`` is
     the registry-wide default applied to every handle.
@@ -187,11 +242,18 @@ class ModelRegistry:
                  device_budget_bytes: Optional[int] = None,
                  max_hot: Optional[int] = None,
                  metrics: Optional[MetricsRegistry] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh=) is not ported: it waits on sharded "
-                "sampling, ROADMAP.md Queue 1, item 1")
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh)
+        self.stream = None
+        if self.mesh is None:
+            self.device = resolve_device(device)
+        else:
+            from repro_torch.serving.spmd import CommandStream
+            self.device = (mesh_device(self.mesh) if device is None
+                           else resolve_device(device))
+            if self.device.type != self.mesh.device_type:
+                raise ValueError(f"a {self.mesh.device_type} mesh cannot "
+                                 f"serve on {self.device}")
+            self.stream = CommandStream()
         self.buckets = tuple(sorted(buckets))
         self.device_budget_bytes = device_budget_bytes
         self.max_hot = max_hot
@@ -255,11 +317,32 @@ class ModelRegistry:
     def _build_handle(self, name: str, host_artifacts: ForestArtifacts,
                       like: ModelHandle, *, hot: bool,
                       version: Optional[int] = None) -> ModelHandle:
-        arts = _place(host_artifacts, self.device) if hot else host_artifacts
+        arts = (_place(host_artifacts, self.device, self.mesh) if hot
+                else host_artifacts)
         return ModelHandle(
             name, arts, device=self.device, schema=like.schema,
             samplers=like.samplers, buckets=like.buckets,
-            version=like.version if version is None else version)
+            version=like.version if version is None else version,
+            mesh=self.mesh, host=host_artifacts,
+            dispatch=None if self.stream is None else self.dispatch)
+
+    def _command(self):
+        """On a mesh, the stream's lock: a command is published and applied
+        in one piece."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return self.stream.lock
+
+    @contextlib.contextmanager
+    def _applying(self):
+        """The part of a command after its publication: on a mesh, a
+        failure there breaks the stream (the other ranks went on)."""
+        try:
+            yield
+        except BaseException as exc:
+            if self.stream is not None:
+                self.stream.abort(exc)
+            raise
 
     # -- public API ----------------------------------------------------------
 
@@ -272,54 +355,69 @@ class ModelRegistry:
         ``TabularGenerator`` artifact pair (schema rides along); ``hot``
         places it on the device immediately (evicting LRU models per
         budget), else it stays cold until first use."""
+        from_path = path if artifacts is None else None
         if artifacts is None:
             if path is None:
                 raise ValueError("register() needs artifacts or path=")
             gen = TabularGenerator.load(path, device="cpu")
             artifacts, schema = gen.artifacts, gen.schema
+        artifacts._require_whole("register")
         host = _host_copy(artifacts, self.device)
         seed_handle = ModelHandle(
             name, host, device=self.device, schema=schema, samplers=samplers,
             buckets=buckets or self.buckets)
-        with self._lock:
-            handle = self._build_handle(name, host, seed_handle, hot=hot)
-            self._entries[name] = _Entry(
-                handle=handle, host_artifacts=host, hot=hot,
-                last_used=self._tick())
-            # re-registering a name wipes its event counters; scrapers see
-            # a normal counter reset
-            self._m_events.reset(model=name)
-            if hot:
-                self._demote_lru(keep=name)
-            self._sync_gauges_locked()
-            return handle
+        with self._command(), self._lock:
+            self._publish("register", name, host, from_path, schema,
+                          samplers=list(seed_handle.samplers),
+                          buckets=list(seed_handle.buckets), hot=hot)
+            with self._applying():
+                handle = self._build_handle(name, host, seed_handle,
+                                            hot=hot)
+                self._entries[name] = _Entry(
+                    handle=handle, host_artifacts=host, hot=hot,
+                    last_used=self._tick())
+                # re-registering a name wipes its event counters; scrapers
+                # see a normal counter reset
+                self._m_events.reset(model=name)
+                if hot:
+                    self._demote_lru(keep=name)
+                self._sync_gauges_locked()
+                return handle
 
     def swap(self, name: str, artifacts: ForestArtifacts, *,
-             schema=None, keep_schema: bool = True) -> ModelHandle:
+             schema=None, keep_schema: bool = True,
+             path: Optional[str] = None) -> ModelHandle:
         """Zero-downtime replace: the new version is built (and device-
         placed, when the entry is hot) *before* the table pointer flips, so
         there is no window where the name is unservable. In-flight batches
-        hold the old handle and finish on the old tensors."""
+        hold the old handle and finish on the old tensors. On a mesh,
+        ``path`` (where ``artifacts`` were loaded from) lets the other ranks
+        load the model themselves instead of receiving its arrays."""
+        artifacts._require_whole("swap")
         host = _host_copy(artifacts, self.device)
-        with self._lock:
+        with self._command(), self._lock:
             entry = self._entries.get(name)
             if entry is None:
                 raise UnknownModel(name)
-            old = entry.handle
-            seed_handle = ModelHandle(
-                name, host, device=self.device,
-                schema=old.schema if keep_schema else schema,
-                samplers=old.samplers, buckets=old.buckets)
-            entry.handle = self._build_handle(
-                name, host, seed_handle, hot=entry.hot,
-                version=old.version + 1)
-            entry.host_artifacts = host
-            entry.last_used = self._tick()
-            self._m_events.inc(1, model=name, event="swaps")
-            if entry.hot:
-                self._demote_lru(keep=name)
-            self._sync_gauges_locked()
-            return entry.handle
+            self._publish("swap", name, host, path,
+                          schema if not keep_schema else None,
+                          keep_schema=keep_schema)
+            with self._applying():
+                old = entry.handle
+                seed_handle = ModelHandle(
+                    name, host, device=self.device,
+                    schema=old.schema if keep_schema else schema,
+                    samplers=old.samplers, buckets=old.buckets)
+                entry.handle = self._build_handle(
+                    name, host, seed_handle, hot=entry.hot,
+                    version=old.version + 1)
+                entry.host_artifacts = host
+                entry.last_used = self._tick()
+                self._m_events.inc(1, model=name, event="swaps")
+                if entry.hot:
+                    self._demote_lru(keep=name)
+                self._sync_gauges_locked()
+                return entry.handle
 
     def acquire(self, name: str) -> ModelHandle:
         """Dispatch-time lookup: promote if cold (LRU-evicting under the
@@ -339,6 +437,66 @@ class ModelRegistry:
             self._m_events.inc(1, model=name, event="acquires")
             return entry.handle
 
+    def dispatch(self, name: str, n: int, sampler: str, *, seed: int,
+                 pad_to: Optional[int] = None,
+                 version: Optional[int] = None):
+        """Acquire ``name`` and enqueue one batch of ``n`` rows; returns
+        ``(handle, sample)``. On a mesh, under the stream's lock: the batch
+        is checked (``version``, a handle's, must still be current; the
+        sampler must be served), published to the other ranks, acquired
+        and enqueued. A failure after the publication breaks the stream
+        (:meth:`~repro_torch.serving.spmd.CommandStream.abort`)."""
+        if self.stream is None:
+            handle = self.acquire(name)
+            return handle, handle.enqueue(
+                n, sampler, seed=seed,
+                pad_to=handle.bucket(n, seed) if pad_to is None else pad_to)
+        with self.stream.lock:
+            handle = self.peek(name)
+            if version is not None and version != handle.version:
+                raise ValueError(
+                    f"model {name!r} version {version} was swapped out "
+                    f"(now {handle.version}): acquire it again")
+            if sampler not in handle.samplers:
+                raise ValueError(f"model {name!r} does not serve sampler "
+                                 f"{sampler!r}; served: "
+                                 f"{list(handle.samplers)}")
+            pad_to = handle.bucket(n, seed) if pad_to is None else pad_to
+            self.stream.publish("batch", model=name, n=int(n),
+                                sampler=sampler, seed=int(seed),
+                                pad_to=int(pad_to))
+            with self._applying():
+                handle = self.acquire(name)
+                return handle, handle.enqueue(n, sampler, seed=seed,
+                                              pad_to=pad_to)
+
+    def handle(self, name: str) -> ModelHandle:
+        """The handle for work outside a batch (warmup, impute, a
+        synchronous generate): :meth:`acquire` without a mesh. On a mesh,
+        :meth:`peek`: there only batches acquire, on every rank alike."""
+        return self.acquire(name) if self.stream is None else self.peek(name)
+
+    def _publish(self, op: str, name: str, host: ForestArtifacts,
+                 path: Optional[str], schema, **args) -> None:
+        """Rank 0 of a mesh: tell the other ranks about a register / swap
+        (caller holds the stream's lock and the registry's)."""
+        if self.stream is None or not self.stream.leader:
+            return
+        from repro_torch.serving.spmd import model_payload
+        self.stream.publish(
+            op, name=name, model=model_payload(host, path),
+            schema=None if schema is None else schema.to_dict(), **args)
+
+    def close(self) -> None:
+        """On a mesh, rank 0: tell the other ranks to leave
+        :func:`~repro_torch.serving.spmd.follow`; no batch is served after.
+        Nothing to do without a mesh."""
+        if self.stream is None or not self.stream.leader:
+            return
+        with self.stream.lock:
+            if not (self.stream.closed or self.stream.broken):
+                self.stream.publish("stop")
+
     def peek(self, name: str) -> ModelHandle:
         """Lookup without promotion or recency bump (request validation)."""
         with self._lock:
@@ -350,7 +508,7 @@ class ModelRegistry:
     def warmup(self, name: Optional[str] = None) -> float:
         """Run every (sampler, bucket) of one model (or all) once."""
         names = [name] if name is not None else self.names()
-        return sum(self.acquire(n).warmup() for n in names)
+        return sum(self.handle(n).warmup() for n in names)
 
     def names(self):
         with self._lock:
@@ -387,6 +545,9 @@ class ModelRegistry:
                     "lineage": e.host_artifacts.lineage,
                     **{ev: int(events.get((name, ev), 0))
                        for ev in _EVENTS},
+                    # on a mesh: the bytes of this rank's slice
+                    **({} if self.mesh is None
+                       else {"rank_nbytes": e.handle.rank_nbytes}),
                 }
                 for name, e in self._entries.items()}
 

@@ -59,6 +59,10 @@ counters — a request *violates* when its submit->delivery latency exceeds
 its priority's objective, or when it is dropped at the deadline — and
 resolved requests over the :class:`~repro_torch.obs.SlowLog` threshold
 dump their linked span timeline to the slow-log JSONL.
+
+A batch is ``registry.dispatch``: on a registry with a mesh, that is a
+collective that rank 0 publishes to the other ranks
+(:mod:`repro_torch.serving.spmd`). The waiter issues none.
 """
 from __future__ import annotations
 
@@ -486,8 +490,8 @@ class InflightScheduler:
             if r.span is not None:
                 r.span.end(batch_id=batch_id)   # queue wait: submit -> claim
         try:
-            handle = self.registry.acquire(batch[0].model)
-            sample = handle.generate_async(total, batch[0].sampler, seed=seed)
+            handle, sample = self.registry.dispatch(
+                batch[0].model, total, batch[0].sampler, seed=seed)
         except BaseException as exc:  # noqa: BLE001 — delivered via futures
             dspan.end(outcome="error")
             for r in batch:

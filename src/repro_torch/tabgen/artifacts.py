@@ -9,6 +9,10 @@ Everything a sampler needs, resident on the device once:
 * early-stopping diagnostics (``best_round`` / ``val_curve``),
 * the :class:`ForestConfig` and the data lineage.
 
+:meth:`ForestArtifacts.shard` gives one rank's slice for sampling on a
+``(data, model)`` mesh of ranks: the classes :func:`solve_axes` puts on
+that rank, on its device, with the class range recorded.
+
 ``save``/``load`` use the JAX package's format unchanged — one ``.npz`` of
 the ``_ARRAY_FIELDS`` plus a JSON sidecar with the config, lineage and any
 extra metadata such as a schema — so a model trained by the JAX trainer
@@ -20,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +40,39 @@ RESULT_FIELDS = ("feat", "thr_val", "leaf", "best_round", "rounds_run",
 _TENSOR_FIELDS = RESULT_FIELDS + ("mins", "maxs")
 _ARRAY_FIELDS = _TENSOR_FIELDS + ("classes", "counts")
 _DTYPES = {"feat": np.int32, "best_round": np.int32, "rounds_run": np.int32}
+
+
+def solve_axes(mesh, n_y: int, model_axis: str = "model"):
+    """(class dimension | None, row dimensions | None) of a sharded solve:
+    the placement policy shared by :meth:`ForestArtifacts.shard` and the
+    sharded solve of :mod:`repro_torch.tabgen.sampling` (the JAX package's
+    ``solve_axes``). Classes go over ``model_axis`` only when they divide
+    it evenly (a 3-class model on two model ranks is replicated over
+    them); rows go over the other dimensions (``data``)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    sizes = dict(zip(names, mesh.shape))
+    model = (model_axis if model_axis in sizes
+             and n_y % sizes[model_axis] == 0 else None)
+    rows = tuple(a for a in names if a != model_axis) or None
+    return model, rows
+
+
+def class_span(mesh, n_y: int) -> Tuple[int, int]:
+    """``[c0, c1)``: the classes this rank of ``mesh`` solves, by
+    :func:`solve_axes` (all of them where classes are replicated)."""
+    model, _ = solve_axes(mesh, n_y)
+    if model is None:
+        return 0, n_y
+    k = n_y // mesh.size(mesh.mesh_dim_names.index(model))
+    r = mesh.get_local_rank(model)
+    return r * k, (r + 1) * k
+
+
+def mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh``: its current GPU, or the CPU."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def scaler_span(mins, maxs):
@@ -102,6 +139,9 @@ class ForestArtifacts:
     config: ForestConfig
     # data lineage ({"rows", "store", "base"}), carried through the sidecar
     lineage: Optional[dict] = None
+    # a slice from shard(): the classes [c0, c1) its tensors hold of the
+    # model's len(classes); None for the whole model
+    class_range: Optional[Tuple[int, int]] = None
 
     # -- shape helpers ------------------------------------------------------
 
@@ -111,7 +151,39 @@ class ForestArtifacts:
 
     @property
     def n_y(self) -> int:
-        return self.feat.shape[1]
+        """Classes of the model (of the whole model, for a slice)."""
+        if self.class_range is None:
+            return self.feat.shape[1]
+        return len(self.counts)
+
+    @property
+    def local_classes(self) -> Tuple[int, int]:
+        """``[c0, c1)``: the classes whose tensors this object holds."""
+        return self.class_range or (0, self.feat.shape[1])
+
+    @property
+    def is_slice(self) -> bool:
+        """Whether this object lacks some of the model's classes."""
+        return self.local_classes != (0, self.n_y)
+
+    def _require_whole(self, what: str) -> None:
+        if self.is_slice:
+            c0, c1 = self.local_classes
+            raise ValueError(
+                f"{what} needs the whole model; these artifacts are a slice "
+                f"holding classes [{c0}, {c1}) of {self.n_y} (from shard())")
+
+    def class_tensors(self, c0: int, c1: int):
+        """``(feat, thr_val, leaf, mins, maxs)`` of classes ``[c0, c1)``:
+        views of the resident tensors, no copy."""
+        a, b = self.local_classes
+        if not a <= c0 <= c1 <= b:
+            raise ValueError(
+                f"classes [{c0}, {c1}) are not all in these artifacts, which "
+                f"hold [{a}, {b}) of {self.n_y}")
+        i, j = c0 - a, c1 - a
+        return (self.feat[:, i:j], self.thr_val[:, i:j], self.leaf[:, i:j],
+                self.mins[i:j], self.maxs[i:j])
 
     @property
     def p(self) -> int:
@@ -124,8 +196,35 @@ class ForestArtifacts:
     def class_forest(self, yi: int) -> PackedForest:
         """Forest stack ``[n_t, 1, n_sub, ...]`` of class ``yi``: a batch of
         one class, a view of the resident arrays."""
-        return PackedForest(self.feat[:, yi:yi + 1], self.thr_val[:, yi:yi + 1],
-                            self.leaf[:, yi:yi + 1], self.config.multi_output)
+        feat, thr_val, leaf, _, _ = self.class_tensors(yi, yi + 1)
+        return PackedForest(feat, thr_val, leaf, self.config.multi_output)
+
+    def shard(self, mesh) -> "ForestArtifacts":
+        """This rank's slice for sampling on ``mesh``: the classes
+        :func:`class_span` gives it (all of them where classes are
+        replicated), on the rank's device on the mesh, with the class range
+        recorded. Rows are split inside the solve. A serving host places
+        this once at promotion, so repeated
+        :func:`~repro_torch.tabgen.sample` calls on the mesh move no
+        weights. From pinned memory the copies of a whole-class slice are
+        asynchronous."""
+        device = mesh_device(mesh)
+        c0, c1 = class_span(mesh, self.n_y)
+        tensors = dict(zip(("feat", "thr_val", "leaf", "mins", "maxs"),
+                           self.class_tensors(c0, c1)))
+        i = c0 - self.local_classes[0]
+        for f in ("best_round", "rounds_run", "val_curve"):
+            tensors[f] = getattr(self, f)[:, i:i + c1 - c0]
+        whole = (c0, c1) == self.local_classes
+
+        def place(t):
+            # a narrowed host tensor is strided: make it contiguous on the
+            # host first, then copy it
+            return (t if whole else t.contiguous()).to(device,
+                                                      non_blocking=whole)
+        return dataclasses.replace(
+            self, class_range=(c0, c1),
+            **{f: place(t) for f, t in tensors.items()})
 
     def extend(self, X, y=None, *, extra_trees: int, **kwargs):
         """Warm-start continuation: grow every ensemble by ``extra_trees``
@@ -194,6 +293,7 @@ class ForestArtifacts:
     def save(self, path: str, extra_meta: Optional[dict] = None) -> str:
         """Write ``<path>.npz`` (arrays) + ``<path>.json`` (config + meta).
         Returns the base path."""
+        self._require_whole("save")
         base = path[:-4] if path.endswith(".npz") else path
         d = os.path.dirname(base)
         if d:

@@ -100,19 +100,23 @@ class TabularGenerator:
         return self
 
     def generate(self, n: int, *, sampler: Optional[str] = None,
-                 seed: int = 0, pad_to: Optional[int] = None):
+                 seed: int = 0, pad_to: Optional[int] = None, mesh=None):
         """``generate_async(...).result()``: the synchronous path and the
         in-flight path share one decode path by construction."""
         return self.generate_async(n, sampler=sampler, seed=seed,
-                                   pad_to=pad_to).result()
+                                   pad_to=pad_to, mesh=mesh).result()
 
     def generate_async(self, n: int, *, sampler: Optional[str] = None,
-                       seed: int = 0, pad_to: Optional[int] = None):
+                       seed: int = 0, pad_to: Optional[int] = None,
+                       mesh=None):
         """Non-blocking generate: enqueues the device work and returns a
         handle whose ``result()`` finishes the call (wait for the device,
-        unpad/shuffle, schema decode)."""
+        unpad/shuffle, schema decode). ``mesh`` (``"auto"`` | DeviceMesh |
+        None) shards the solve over a mesh of ranks, every rank making the
+        same call; the rows equal the unsharded call's on the same device
+        type."""
         handle = _sample_async(self._require_artifacts(), n, sampler=sampler,
-                               seed=seed, pad_to=pad_to)
+                               seed=seed, pad_to=pad_to, mesh=mesh)
         if self.schema is None:
             return handle
         return _DecodingHandle(handle, self.schema)

@@ -231,6 +231,7 @@ def extend_artifacts(base: ForestArtifacts, X, y=None, *, extra_trees: int,
     """
     if extra_trees <= 0:
         raise ValueError(f"extra_trees must be positive, got {extra_trees}")
+    base._require_whole("extend")
     fcfg = dataclasses.replace(
         base.config, n_trees=base.config.n_trees + int(extra_trees))
     return fit_artifacts(X, y, fcfg, warm_start=base, **kwargs)

@@ -76,6 +76,7 @@ def clamped_solve(forests: PackedForest, obs, mask, eps_fix,
 def impute(artifacts: ForestArtifacts, X_missing, y=None, *, seed: int = 0,
            refine_rounds: int = 3) -> np.ndarray:
     """Fill NaNs in ``X_missing``; observed cells are returned untouched."""
+    artifacts._require_whole("impute")
     fcfg = artifacts.config
     X_missing = np.asarray(X_missing, np.float32)
     n, p = X_missing.shape

@@ -8,7 +8,8 @@ The same names, interpolant families and ``stochastic`` flags as
 ``x1`` is ``[n_y, m, p]`` and ``forests`` a :class:`PackedForest` with
 arrays ``[n_t, n_y, ...]``. A stochastic solver takes its noise from
 ``noise`` (an explicit tensor, as the parity tests pass it) or else from the
-``torch.Generator`` ``generator``.
+``torch.Generator`` ``generator``; ``noise`` may also be a callable
+``noise(k)`` giving step k's draw (the sharded solve passes one).
 """
 from __future__ import annotations
 

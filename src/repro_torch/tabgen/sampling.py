@@ -21,6 +21,20 @@ that ran the solve, and records an event behind it: ``result()`` waits for
 that event only. A serving thread that resolves batch k while another
 thread has already enqueued batch k+1 therefore does not wait for batch
 k+1's device work.
+
+``mesh`` shards the solve over a ``(data, model)`` ``DeviceMesh`` of ranks
+(:mod:`repro_torch.launch.mesh`), one process per device. It is a
+collective: every rank calls :func:`sample_async` with the same arguments,
+and every rank gets the same rows. A rank solves the classes
+:func:`~repro_torch.tabgen.artifacts.class_span` gives it and the rows
+``[r·k, (r+1)·k)`` of its data rank ``r`` (``k = ceil(m / n_data)``). Its
+x1 comes from the same ``(seed, class, block)`` streams, drawing only the
+blocks its rows touch, and a stochastic sampler's step noise is its slice
+of the unsharded call's whole draw, so the rows equal the unsharded
+call's on the same device type, bit for bit. ``sample_async`` enqueues
+the gathers (over ``data``, then over ``model`` where classes are split)
+and the copy to pinned memory behind them; :meth:`SampleHandle.result`
+issues no collective.
 """
 from __future__ import annotations
 
@@ -28,10 +42,12 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import interpolants as itp
 from repro_torch.forest.packed import PackedForest
-from repro_torch.tabgen.artifacts import ForestArtifacts, unscale, unscale_host
+from repro_torch.tabgen.artifacts import (ForestArtifacts, class_span,
+                                          unscale, unscale_host)
 from repro_torch.tabgen.samplers import default_sampler, get_sampler
 
 NOISE_BLOCK = 1024   # rows per x1 block
@@ -47,18 +63,25 @@ def stream_seed(*words: int) -> int:
     return int(ss.generate_state(1, np.uint64)[0]) >> 1
 
 
-def row_noise(seed: int, n_y: int, m: int, p: int, device) -> torch.Tensor:
+def row_noise(seed: int, n_y: int, m: int, p: int, device,
+              classes: Optional[Tuple[int, int]] = None,
+              rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Standard-normal x1 ``[n_y, m, p]`` whose row i of class c depends only
-    on ``(seed, c, i)``."""
-    blocks = -(-m // NOISE_BLOCK)
-    x1 = torch.empty((n_y, blocks * NOISE_BLOCK, p), dtype=torch.float32,
-                     device=device)
+    on ``(seed, c, i)``. ``classes`` / ``rows`` (``[lo, hi)``) return that
+    block of it, drawing only the row blocks the rows touch."""
+    c0, c1 = classes or (0, n_y)
+    r0, r1 = rows or (0, m)
+    b0, b1 = r0 // NOISE_BLOCK, -(-r1 // NOISE_BLOCK)
+    x1 = torch.empty((c1 - c0, (b1 - b0) * NOISE_BLOCK, p),
+                     dtype=torch.float32, device=device)
     gen = torch.Generator(device=device)
-    for c in range(n_y):
-        for b in range(blocks):
+    for c in range(c0, c1):
+        for b in range(b0, b1):
             gen.manual_seed(stream_seed(seed, _X1_STREAM, c, b))
-            x1[c, b * NOISE_BLOCK:(b + 1) * NOISE_BLOCK].normal_(generator=gen)
-    return x1[:, :m].contiguous()
+            lo = (b - b0) * NOISE_BLOCK
+            x1[c - c0, lo:lo + NOISE_BLOCK].normal_(generator=gen)
+    off = b0 * NOISE_BLOCK
+    return x1[:, r0 - off:r1 - off].contiguous()
 
 
 def sample_labels(counts: np.ndarray, n: int, rng: np.random.Generator,
@@ -90,6 +113,104 @@ def solve_all_classes(feat, thr_val, leaf, x1, mins, maxs, ts, *, solver_fn,
     x0 = solver_fn(x1, forests, depth=depth, n_t=n_t, ts=ts, eps=eps,
                    noise=noise, generator=generator)
     return unscale(x0, mins[:, None, :], maxs[:, None, :])
+
+
+def resolve_mesh(mesh):
+    """``None`` | ``DeviceMesh`` | ``"auto"`` -> ``DeviceMesh`` | ``None``.
+    ``"auto"`` is :func:`~repro_torch.launch.mesh.auto_forest_mesh`: ``None``
+    on one GPU, as for the trainer. The serving registry resolves its
+    ``mesh=`` through this too."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if mesh is None or isinstance(mesh, DeviceMesh):
+        return mesh
+    if isinstance(mesh, str) and mesh == "auto":
+        from repro_torch.launch.mesh import auto_forest_mesh
+        return auto_forest_mesh()
+    raise ValueError(f"mesh={mesh!r}: expected a DeviceMesh, None or 'auto'")
+
+
+class _StepNoise:
+    """A stochastic sampler's step noise on one rank of a sharded solve:
+    step k draws the unsharded call's whole ``[n_y, m, p]`` step from the
+    shared generator (or takes ``draws[k]``) and keeps this rank's classes
+    and rows. Every rank makes the full draw each step: that is the cost of
+    rows equal to the unsharded call's."""
+
+    def __init__(self, shape, classes, rows, device, generator=None,
+                 draws=None):
+        self.shape, self.device = shape, device
+        self.cls, self.rows = slice(*classes), slice(*rows)
+        self.generator, self.draws = generator, draws
+
+    def __call__(self, k: int) -> torch.Tensor:
+        if self.draws is not None:
+            z = self.draws[k]
+        else:
+            z = torch.randn(self.shape, generator=self.generator,
+                            dtype=torch.float32, device=self.device)
+        return z[self.cls, self.rows]
+
+
+def _gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """``[size · t.shape[0], ...]``: ``t`` of every rank of ``group``
+    stacked in rank order. On a CUDA group it is enqueued: the current
+    stream waits for it, the host does not."""
+    out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def solve_sharded(artifacts: ForestArtifacts, mesh, ts, *, m: int,
+                  solver_fn, x1: Callable, noise=None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """The sharded solve: ``[n_y, m, p]`` unscaled samples on every rank
+    of ``mesh``, a collective.
+
+    This rank solves classes ``[c0, c1)`` (:func:`class_span`) and rows
+    ``[r0, r1)`` of its data rank. ``x1(classes, rows)`` returns that block
+    of the call's ``[n_y, m, p]`` x1. A stochastic ``solver_fn`` takes its
+    step noise from ``noise`` (the whole ``[n_t - 1, n_y, m, p]``) or else
+    from ``generator``, in either case this rank's slice of the whole
+    draw. ``artifacts`` may be the whole model on this rank's device or
+    the slice :meth:`ForestArtifacts.shard` made for it, on the mesh's
+    device type (:func:`sample_async` checks that). The gathers are
+    enqueued (over ``data``, then over ``model`` where classes are split);
+    on a CUDA mesh the host does not wait for them.
+    """
+    from repro_torch.forest.distributed import Shards
+    fcfg = artifacts.config
+    n_y, p, device = artifacts.n_y, artifacts.p, artifacts.device
+    sh = Shards.from_mesh(mesh)
+    c0, c1 = class_span(mesh, n_y)
+    feat, thr_val, leaf, mins, maxs = artifacts.class_tensors(c0, c1)
+    k = -(-m // sh.data_size)
+    r0 = min(sh.data_rank * k, m)
+    r1 = min(r0 + k, m)
+    x = None
+    if r1 > r0:
+        step_noise = None
+        if noise is not None or generator is not None:
+            step_noise = _StepNoise((n_y, m, p), (c0, c1), (r0, r1), device,
+                                    generator, noise)
+        x = solve_all_classes(
+            feat, thr_val, leaf, x1((c0, c1), (r0, r1)).contiguous(), mins,
+            maxs, ts,
+            solver_fn=solver_fn, depth=fcfg.max_depth, n_t=fcfg.n_t,
+            multi_output=fcfg.multi_output, eps=fcfg.eps_diff,
+            noise=step_noise)
+    if r1 - r0 < k:                                   # pad to k rows
+        pad = torch.zeros((c1 - c0, k, p), dtype=torch.float32,
+                          device=device)
+        if x is not None:
+            pad[:, :r1 - r0] = x
+        x = pad
+    x = _gather(x, sh.data_group, sh.data_size)       # [n_data·c, k, p]
+    x = x.view(sh.data_size, c1 - c0, k, p).transpose(0, 1)
+    x = x.reshape(c1 - c0, sh.data_size * k, p)[:, :m]
+    if c1 - c0 < n_y:                                 # classes split
+        x = _gather(x, sh.model_group, sh.model_size)
+    return x.contiguous()
 
 
 def _resolve_sampler(fcfg, sampler: Optional[str]):
@@ -158,14 +279,23 @@ def _copy_to_host(x: torch.Tensor):
 
 def sample_async(artifacts: ForestArtifacts, n: int, *,
                  sampler: Optional[str] = None, seed: int = 0,
-                 pad_to: Optional[int] = None) -> SampleHandle:
+                 pad_to: Optional[int] = None, mesh=None) -> SampleHandle:
     """Enqueue a generate call on the artifacts' device without waiting.
 
     :func:`sample` is ``sample_async(...).result()``, so both paths give the
-    same rows by construction.
+    same rows by construction. With ``mesh`` (``None`` | ``DeviceMesh`` |
+    ``"auto"``) every rank of the mesh makes the same call (a collective);
+    ``artifacts`` is the whole model on the rank's device or its
+    :meth:`~ForestArtifacts.shard` slice.
     """
     fcfg = artifacts.config
     _, spec = _resolve_sampler(fcfg, sampler)
+    mesh = resolve_mesh(mesh)
+    if mesh is None and artifacts.is_slice:
+        artifacts._require_whole("sample without its mesh")
+    if mesh is not None and mesh.device_type != artifacts.device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot sample from "
+                         f"artifacts on {artifacts.device}")
     rng = np.random.default_rng(seed)
     label_idx = sample_labels(artifacts.counts, n, rng, fcfg.label_sampler)
     n_y = artifacts.n_y
@@ -178,16 +308,24 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
     device = artifacts.device
     ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff, fcfg.t_schedule,
                        device=device)
-    x1 = row_noise(seed, n_y, m, artifacts.p, device)
     generator = None
     if spec.stochastic:
         generator = torch.Generator(device=device)
         generator.manual_seed(stream_seed(seed, _SOLVE_STREAM))
-    x_all = solve_all_classes(
-        artifacts.feat, artifacts.thr_val, artifacts.leaf, x1,
-        artifacts.mins, artifacts.maxs, ts, solver_fn=spec.fn,
-        depth=fcfg.max_depth, n_t=fcfg.n_t, multi_output=fcfg.multi_output,
-        eps=fcfg.eps_diff, generator=generator)
+    if mesh is None:
+        x_all = solve_all_classes(
+            artifacts.feat, artifacts.thr_val, artifacts.leaf,
+            row_noise(seed, n_y, m, artifacts.p, device),
+            artifacts.mins, artifacts.maxs, ts, solver_fn=spec.fn,
+            depth=fcfg.max_depth, n_t=fcfg.n_t,
+            multi_output=fcfg.multi_output, eps=fcfg.eps_diff,
+            generator=generator)
+    else:
+        x_all = solve_sharded(
+            artifacts, mesh, ts, m=m, solver_fn=spec.fn,
+            x1=lambda classes, rows: row_noise(seed, n_y, m, artifacts.p,
+                                               device, classes, rows),
+            generator=generator)
     ready = None
     if device.type == "cuda":
         x_all, ready = _copy_to_host(x_all)
@@ -197,14 +335,16 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
 
 def sample(artifacts: ForestArtifacts, n: int, *,
            sampler: Optional[str] = None, seed: int = 0,
-           pad_to: Optional[int] = None):
+           pad_to: Optional[int] = None, mesh=None):
     """Generate ``n`` rows (and their labels) from trained artifacts.
 
     ``pad_to`` fixes the per-class row bucket (>= the largest per-class
-    request); for the deterministic samplers it changes no row.
+    request); for the deterministic samplers it changes no row. ``mesh``
+    shards the solve over a mesh of ranks (see :func:`sample_async`); the
+    rows equal the unsharded call's on the same device type.
     """
     return sample_async(artifacts, n, sampler=sampler, seed=seed,
-                        pad_to=pad_to).result()
+                        pad_to=pad_to, mesh=mesh).result()
 
 
 def sample_loop_reference(artifacts: ForestArtifacts, n: int, *,

@@ -261,8 +261,12 @@ def test_registry_max_hot_cap_and_unknown(flow_mo):
 
 
 def test_registry_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ModelRegistry(device="cpu", mesh="auto")
+    """``mesh="auto"`` on a host without two GPUs resolves to no mesh, as
+    the trainer's does; a value that is not a mesh is refused (sharded
+    serving itself: tests/test_torch_sharded_sampling.py)."""
+    assert ModelRegistry(device="cpu", mesh="auto").mesh is None
+    with pytest.raises(ValueError, match="expected a DeviceMesh"):
+        ModelRegistry(device="cpu", mesh="2x1")
 
 
 def test_registry_register_from_path_keeps_schema(tmp_path):
@@ -326,6 +330,10 @@ class _FakeRegistry:
 
     def acquire(self, name):
         return self._handle
+
+    def dispatch(self, name, n, sampler, *, seed):
+        return self._handle, self._handle.generate_async(n, sampler,
+                                                         seed=seed)
 
 
 def test_inflight_overlap_two_batches_in_flight():
