@@ -70,11 +70,17 @@
    not kept, then unsharded, mesh, mesh, unsharded twice) and from the
    ``shard(mesh)`` slice, and em (unsharded, mesh, mesh, unsharded), every
    call bit-equal to the unsharded one with 99 ``tree_predict`` launches;
+   an impute of 512 of those rows (half the cells missing) with
+   ``impute(mesh=)`` in turns with the unsharded impute and through the
+   mesh registry, bit-equal, with its ``tree_predict`` launch count;
    the first 16 requests of phase 7's burst through a ``ModelRegistry(mesh=)``
    and an unsharded registry in turns (a warm-up burst each first), every
-   request bit-equal to the unsharded replay of its batch, rows/s of each;
+   request bit-equal to the unsharded replay of its batch, rows/s of each,
+   and from them the per-batch cost of the command stream's failure check
+   (on one rank it exchanges nothing; its gloo exchange is also timed
+   alone, on a one-rank group);
    ``serve_forest --mesh 1x1 --demo`` and ``serve_http --mesh 1x1`` (a
-   generate, a reload to version 2, SIGINT)
+   generate, an impute, a reload to version 2, SIGINT)
    as subprocesses.
 8. Drives the training path through ``TabularGenerator.fit`` at the same
    width (p=368, duplicate_k=20, n_trees=20, max_depth=7, n_bins=64,
@@ -100,11 +106,23 @@
    of device time. Then bf16, the prefill entry point's default: 30
    launches per prefill and none in two decode steps; one prefill timed
    (seconds, tokens/s) and one profiled for the kernel's share.
+10b. Trains smollm-135m at its published width and depth (seeded weights)
+   through ``repro_torch.train.loop.train`` on ``FastTokenStream``
+   batches of 8 x 2,048 tokens, remat "full", fp32 masters, AdamW: 4 steps
+   at bf16 compute and 3 at fp32 (steps/s, tokens/s, device peak bytes;
+   the loss must go down), and the bf16 run again with a commit at step 2
+   and a second call resuming it from other weights, its losses equal to
+   the uninterrupted run's bit for bit. No kernel of the three launches
+   (training attends through ``mea_attention``, as the JAX package does).
 11. Checks every path against the plain PyTorch path on the CPU at a small
    size (a solve, a save -> load round trip, and logs whether one seed
    gives the card and the CPU different rows, a two-moons fit with the same
-   noise, on one device and on the sharded route's one rank, a 2-layer smollm-135m-width prefill and 8 greedy tokens) and
-   that a warm-start extension on the card equals a cold fit bit for bit.
+   noise and early stopping on (best_round and the trees equal), on one
+   device and on the sharded route's one rank, a 2-layer
+   smollm-135m-width prefill and 8 greedy tokens, and a 2-layer
+   smollm-135m-width training step: loss within 1e-5 relative, parameters
+   after one AdamW step within 1e-4) and that a warm-start extension on
+   the card equals a cold fit bit for bit.
 
 12. Drives the comparison plane (``drive_comparison``, budgeted at 120 s):
    (a) NN-flow, NN-diffusion, TVAE and CTGAN on the card against the plain
@@ -124,7 +142,7 @@
    W1 to the test split, coverage, mean rank, seconds; gated on shape and
    finiteness only. (c) The resource comparison of Figures 1/2/4 at
    ``bench_resource_scaling.py``'s configuration (p=8, n_y=2, n_t=3, K=10,
-   T=10, depth 4, 32 bins): the Original-style arm at n=200, 500, 1,000,
+   T=10, depth 4, 32 bins): the Original-style arm at n=200 and 1,000,
    ours-SO and ours-MO up to n=100,000, the early-stopping arms at 1,000,
    each in a fresh subprocess importing only the port with the kernels
    built: wall seconds, peak RSS, RSS above the post-init baseline, device
@@ -1112,6 +1130,17 @@ def _mesh_cli(tmp, dev):
         gen = http_call("POST", f"{url}/v1/generate",
                         {"model": "demo", "n": 100})
         out["generate_s"] = time.perf_counter() - t0
+        rows = [[r[0], None] if i % 2 else [None, r[1]]
+                for i, r in enumerate(gen[1]["rows"][:8])]
+        imp = http_call("POST", f"{url}/v1/impute",
+                        {"model": "demo", "rows": rows,
+                         "labels": gen[1]["labels"][:8]})
+        filled = np.asarray(imp[1].get("rows", []), np.float64)
+        if (imp[0] != 200 or filled.shape != (8, 2)
+                or not np.isfinite(filled).all()
+                or any(filled[i, 1 - i % 2] != rows[i][1 - i % 2]
+                       for i in range(8))):
+            raise AssertionError(f"serve_http --mesh 1x1: impute {imp}")
         reload = http_call("POST", f"{url}/v1/models/demo/reload",
                            {"path": path})
         again = http_call("POST", f"{url}/v1/generate",
@@ -1133,8 +1162,8 @@ def _mesh_cli(tmp, dev):
         log("serve_forest --mesh 1x1 --demo: " + next(
             x for x in ftail.splitlines() if x.startswith("served ")))
         log(f"serve_http --mesh 1x1: generate 200 in {out['generate_s']!r} "
-            "s, reload to version 2, generate "
-            "200 on version 2, SIGINT -> exit 0")
+            "s, impute 200 (observed cells kept), reload to version 2, "
+            "generate 200 on version 2, SIGINT -> exit 0")
         return out
     finally:
         watchdog.cancel()
@@ -1142,6 +1171,22 @@ def _mesh_cli(tmp, dev):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def settle_cost(reps: int = 200) -> float:
+    """Seconds of one failure-check exchange (``CommandStream.settle``'s
+    all_reduce of a flag on a gloo group, waited on) on a one-rank group:
+    the host cost a batch pays on a mesh of more ranks, before any peer's
+    latency. On one rank the stream has no side group and skips it."""
+    import torch.distributed as dist
+    from repro_torch.serving.spmd import SETTLE_TIMEOUT
+    group = dist.new_group(backend="gloo")
+    flag = torch.zeros(1, dtype=torch.int32)
+    dist.all_reduce(flag, group=group, async_op=True).wait(SETTLE_TIMEOUT)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(flag, group=group, async_op=True).wait(SETTLE_TIMEOUT)
+    return (time.perf_counter() - t0) / reps
 
 
 def drive_sharded(device, tmp):
@@ -1156,7 +1201,7 @@ def drive_sharded(device, tmp):
     from repro_torch.kernels.tree_predict.ops import forest_predict
     from repro_torch.launch.mesh import forest_mesh
     from repro_torch.serving import ModelRegistry
-    from repro_torch.tabgen import sample
+    from repro_torch.tabgen import impute, sample
     on_card = device.type == "cuda"
     t_phase = time.perf_counter()
     cfg = photons_config(n_t=N_T, multi_output=True)
@@ -1213,6 +1258,44 @@ def drive_sharded(device, tmp):
             call("em, 1x1 mesh" if on_mesh else "em", diff, "em", 5, on_mesh)
         del diff
 
+        # -- impute on the mesh: 512 of the euler rows, half the cells gone --
+        X, y = refs["euler"]
+        X_missing = np.where(np.random.default_rng(0).random((512, P)) < 0.5,
+                             np.nan, X[:512])
+        y_missing = y[:512]
+        expect = len(np.unique(y_missing)) * impute_launches(flow)
+
+        def impute_call(label, fn):
+            nonlocal tp_launches
+            forest_predict.launches = 0
+            t0 = time.perf_counter()
+            filled = fn()
+            dt = time.perf_counter() - t0
+            got = forest_predict.launches
+            tp_launches += got
+            if on_card and got != expect:
+                raise AssertionError(f"{label}: {got} tree_predict launches, "
+                                     f"expected {expect}")
+            out["impute_s"].setdefault(label, []).append(dt)
+            log(f"{label}: 512 rows {dt!r} s, {got} tree_predict launches")
+            return filled
+
+        out["impute_s"] = {}
+        ref_fill = None
+        for on_mesh in (False, True, True, False):
+            label = "impute, 1x1 mesh" if on_mesh else "impute"
+            filled = impute_call(label, lambda: impute(
+                flow, X_missing, y_missing, seed=6,
+                mesh=mesh if on_mesh else None))
+            ref_fill = filled if ref_fill is None else ref_fill
+            if not np.array_equal(filled, ref_fill):
+                raise AssertionError(f"{label}: rows differ from the "
+                                     "unsharded impute")
+        obs = ~np.isnan(X_missing)
+        if (not np.isfinite(ref_fill).all()
+                or not np.array_equal(ref_fill[obs], X_missing[obs])):
+            raise AssertionError("impute: bad rows or observed cells changed")
+
         # -- the registry on the mesh against the unsharded one ----------------
         rng = np.random.default_rng(7)
         sizes = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1,
@@ -1231,10 +1314,18 @@ def drive_sharded(device, tmp):
         d = regs["mesh"].describe()["A"]
         log(f"mesh registry: {d['nbytes']} model bytes counted against the "
             f"budget, {d['rank_nbytes']} on this rank")
+        filled = impute_call("impute, mesh registry", lambda: regs[
+            "mesh"].handle("A").impute(X_missing, y_missing, seed=6))
+        if not np.array_equal(filled, ref_fill):
+            raise AssertionError("the mesh registry's impute differs from "
+                                 "the unsharded impute")
+        log("impute: sharded (1x1 mesh) and through the mesh registry "
+            "bit-equal to the unsharded impute")
         del flow
         if on_card:
             torch.cuda.empty_cache()
         rates = {"mesh": [], "unsharded": []}
+        batch_s = {"mesh": [], "unsharded": []}
         # a warm-up burst each, checked, not kept; then in turns
         for i, arm in enumerate(("mesh", "unsharded", "mesh", "unsharded",
                                  "unsharded", "mesh")):
@@ -1245,14 +1336,24 @@ def drive_sharded(device, tmp):
                                      f"{batches} batches")
             if i >= 2:
                 rates[arm].append(rate)
+                batch_s[arm].append(int(sizes.sum()) / rate / batches)
             log(f"burst ({arm}{', warm-up' if i < 2 else ''}): "
                 f"{SHARD_REQUESTS} requests, {int(sizes.sum())} rows in "
                 f"{batches} batches, {rate!r} rows/s, {launches} "
                 "tree_predict launches; every request bit-equal to the "
                 "unsharded replay of its batch")
         regs["mesh"].close()
+        check = settle_cost()
         out.update(burst_rows_per_s=rates, burst_rows=int(sizes.sum()),
-                   model_bytes=d["nbytes"], rank_bytes=d["rank_nbytes"])
+                   model_bytes=d["nbytes"], rank_bytes=d["rank_nbytes"],
+                   burst_batch_s=batch_s, failure_check_s=check,
+                   check_cost_per_batch_s=(_median(batch_s["mesh"])
+                                           - _median(batch_s["unsharded"])))
+        log(f"failure check: a batch on the mesh {_median(batch_s['mesh'])!r}"
+            f" s against {_median(batch_s['unsharded'])!r} s unsharded (the "
+            "burst's wall over its batches; on one rank the check exchanges "
+            f"nothing); its gloo exchange alone on a one-rank group {check!r}"
+            " s")
         del regs
     finally:
         dist.destroy_process_group()
@@ -1727,7 +1828,9 @@ def check_training_small(device):
     from repro_torch.tabgen import extend_artifacts, fit_artifacts
     X, y = two_moons(240, seed=0)
     for mo in (False, True):
-        cfg = ForestConfig(n_t=5, duplicate_k=6, n_trees=8, max_depth=3,
+        # 20 rounds with a patience of 2: most lanes stop early, so the
+        # card's best_round is held to the CPU's where it decides something
+        cfg = ForestConfig(n_t=5, duplicate_k=6, n_trees=20, max_depth=3,
                            n_bins=16, reg_lambda=1.0, multi_output=mo,
                            early_stop_rounds=2)
         a = fit_artifacts(X, y, cfg, device=device, noise=cpu_noise)
@@ -1736,11 +1839,15 @@ def check_training_small(device):
                    for f in ("feat", "best_round", "rounds_run"))
         err = max((getattr(a, f).cpu() - getattr(b, f)).abs().max().item()
                   for f in ("leaf", "thr_val"))
+        stopped = int((b.rounds_run < cfg.n_trees).sum())
         log(f"fit {'MO' if mo else 'SO'} two-moons on {device.type} vs "
-            f"plain on cpu: structure equal {same}, leaves and thresholds "
-            f"max abs diff {err!r}")
-        if not same or err > SMALL_TOL:
+            f"plain on cpu, early stopping on ({stopped} of "
+            f"{b.rounds_run.numel()} lanes stopped early): structure and "
+            f"best_round equal {same}, leaves and thresholds max abs diff "
+            f"{err!r}")
+        if not same or err > SMALL_TOL or stopped == 0:
             raise AssertionError("training: device and plain path disagree")
+        cfg = dataclasses.replace(cfg, n_trees=8)
         cold = fit_artifacts(X, y, cfg, seed=5, device=device)
         base = fit_artifacts(X, y, dataclasses.replace(cfg, n_trees=5),
                              seed=5, device=device)
@@ -1783,6 +1890,7 @@ def check_training_small(device):
 
 BASELINE_STEPS = 20            # card vs CPU at a small size
 PARAM_TOL, LOSS_RTOL = 1e-4, 1e-5
+GRAD_RTOL = 1e-4               # an LM gradient, of its leaf's largest entry
 QUALITY_STEPS = 200            # bench_quality.py's quick=True: 600
 QUALITY_FOREST = dict(n_t=8, duplicate_k=10, n_trees=15, max_depth=4,
                       n_bins=32, reg_lambda=1.0, early_stop_rounds=5)
@@ -2568,6 +2676,166 @@ def drive_serving(device):
     return launches, stats
 
 
+# smollm-135m training: B=8 sequences of 2,048 tokens, remat "full", fp32
+# masters. The run with a commit trains to TRAIN_SPLIT, then a second call
+# resumes it to TRAIN_STEPS. The learning rate is 1e-4 from the first step:
+# at the JAX launcher's 1e-3 (set for reduced configs) the seeded 30-layer
+# model's loss rises over the first steps (77 -> 116 on the card), and on
+# the CPU's plain fp32 path alike (scripts/check_torch_lm_lr.py)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_SPLIT, TRAIN_LR = 8, 2048, 4, 2, 1e-4
+TRAIN_FP32_STEPS = 3
+
+
+def lm_train_run(cfg, tcfg, steps, dtype, device, seed=0, ckpt_dir=None,
+                 params=None):
+    """``repro_torch.train.loop.train`` on FastTokenStream batches from
+    seeded weights; returns (losses by step, host seconds at each logged
+    step, device peak bytes)."""
+    from repro_torch.data.tokens import FastTokenStream
+    from repro_torch.models import lm
+    from repro_torch.train.loop import train
+    if params is None:
+        params = lm.init_params(cfg, device=device, seed=seed)
+    stream = FastTokenStream(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+    stamps = []
+
+    def stamp(line):
+        if line.startswith("step"):
+            stamps.append(time.perf_counter())
+        log(f"  {line}")
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _, _, history = train(cfg, tcfg, stream.batch_at, steps=steps,
+                          ckpt_dir=ckpt_dir, ckpt_every=10 ** 9,
+                          log_every=1, dtype=dtype, params=params,
+                          log_fn=stamp)
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    return {h["step"]: h["loss"] for h in history}, stamps, peak
+
+
+def drive_lm_training(device, tmp):
+    """Train smollm-135m at its published width and depth (30 layers,
+    d_model 576, vocab 49,152; seeded weights) through
+    ``repro_torch.train.loop.train``: TRAIN_STEPS steps at bf16 compute
+    with fp32 masters, uninterrupted, timed; the same run with a commit at
+    TRAIN_SPLIT and a second call that resumes it (from other weights: the
+    restore must overwrite them), its losses equal to the uninterrupted
+    run's bit for bit; TRAIN_FP32_STEPS steps at fp32. The loss must go
+    down. Attention is mea_attention (the kernel has no backward): no
+    kernel of the three launches here. Returns the numbers."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_arch
+    cfg = get_arch("smollm-135m")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, remat_policy="full")
+    tokens = TRAIN_B * TRAIN_S
+    out = {"batch": TRAIN_B, "seq": TRAIN_S, "remat": "full"}
+    t_phase = time.perf_counter()
+    for name, dtype, steps in (("bf16", torch.bfloat16, TRAIN_STEPS),
+                               ("fp32", torch.float32, TRAIN_FP32_STEPS)):
+        t0 = time.perf_counter()
+        losses, stamps, peak = lm_train_run(cfg, tcfg, steps, dtype, device)
+        wall = time.perf_counter() - t0
+        rate = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        first, last = losses[1], losses[steps]
+        if not all(math.isfinite(v) for v in losses.values()) or \
+                not last < first:
+            raise AssertionError(f"training {name}: losses {losses}")
+        out[name] = {"losses": losses, "steps_per_s": rate,
+                     "tokens_per_s": rate * tokens, "peak_bytes": peak,
+                     "first_step_s": stamps[0] - t0, "wall_s": wall}
+        log(f"smollm-135m training, {name} compute, fp32 masters, B="
+            f"{TRAIN_B}, S={TRAIN_S}, remat full: loss {first!r} -> "
+            f"{last!r} over {steps} steps; {rate!r} steps/s, "
+            f"{rate * tokens!r} tokens/s after the first step "
+            f"({stamps[0] - t0!r} s to it); device peak {peak} bytes")
+        if name == "bf16":
+            uninterrupted = losses
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    # the same bf16 run, committed at TRAIN_SPLIT, resumed in a second call
+    ckpt_dir = os.path.join(tmp, "lm_ckpt")
+    t0 = time.perf_counter()
+    lm_train_run(cfg, tcfg, TRAIN_SPLIT, torch.bfloat16, device,
+                 ckpt_dir=ckpt_dir)
+    saved = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed, _, _ = lm_train_run(cfg, tcfg, TRAIN_STEPS, torch.bfloat16,
+                                 device, seed=1, ckpt_dir=ckpt_dir)
+    want = {k: v for k, v in uninterrupted.items() if k > TRAIN_SPLIT}
+    if resumed != want:
+        raise AssertionError(f"resume: losses {resumed}, the uninterrupted "
+                             f"run's {want}")
+    out["resume"] = {"losses": resumed, "to_commit_s": saved,
+                     "resumed_s": time.perf_counter() - t0}
+    log(f"checkpoint at step {TRAIN_SPLIT} ({saved!r} s with the commit), "
+        f"resumed from other weights to step {TRAIN_STEPS}: losses "
+        f"{resumed} equal the uninterrupted run's bit for bit")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"LM training phase: {out['phase_s']!r} s")
+    return out
+
+
+def check_training_lm_small(device):
+    """A 2-layer smollm-135m-width model (vocab 49,152) on the card against
+    the plain path on the CPU, fp32, TF32 off, from the same weights and
+    batch: the loss within LOSS_RTOL relative, every parameter's gradient
+    within GRAD_RTOL of its largest entry on the CPU (and the step's
+    grad_norm within GRAD_RTOL relative), the parameters after one AdamW
+    step within PARAM_TOL. The gradients are held on their own: Adam's
+    first step moves a parameter by about lr·sign(g), whatever g's size,
+    so the parameters alone would not show a gradient off by a factor. At
+    TrainConfig's default learning rate a gradient at rounding level whose
+    sign differs between the devices moves a parameter by up to 2·lr (a
+    float32 and a float64 step on the CPU differ by 2.4e-5 there, by 8e-5
+    at lr 1e-3)."""
+    import copy
+    from repro_torch.config import TrainConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import FastTokenStream
+    from repro_torch.models import lm
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optim import init_opt_state
+    cfg = dataclasses.replace(get_arch("smollm-135m"), n_layers=2)
+    tcfg = TrainConfig(warmup_steps=1, total_steps=4, remat_policy="full")
+    card = lm.init_params(cfg, device=device, seed=3)
+    cpu = copy.deepcopy(card).to("cpu")
+    batch = FastTokenStream(cfg.vocab, 128, 2, seed=5).batch_at(0)
+    got, norms, grads = {}, {}, {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        dev = model.embed.tokens.device
+        on_dev = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        params = list(model.parameters())
+        loss, _ = lm.loss_fn(model, on_dev, cfg, dtype=torch.float32,
+                             remat_policy=tcfg.remat_policy)
+        grads[name] = [torch.zeros(p.shape) if g is None else g.cpu()
+                       for p, g in zip(params, torch.autograd.grad(
+                           loss, params, allow_unused=True))]
+        opt = init_opt_state(params)
+        _, m = make_train_step(cfg, tcfg, dtype=torch.float32)(
+            model, opt, on_dev)
+        got[name], norms[name] = m["loss"].item(), m["grad_norm"].item()
+    rel = abs(got["card"] - got["cpu"]) / abs(got["cpu"])
+    norm_rel = abs(norms["card"] - norms["cpu"]) / abs(norms["cpu"])
+    grad_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(grads["card"], grads["cpu"]))
+    err = max((a.cpu() - b).abs().max().item()
+              for a, b in zip(card.parameters(), cpu.parameters()))
+    log(f"LM training step, 2-layer smollm-135m width, {device.type} vs "
+        f"plain on cpu: loss {got['card']!r} vs {got['cpu']!r} (relative "
+        f"{rel!r}), gradients worst leaf {grad_rel!r} of its largest entry, "
+        f"grad_norm {norms['card']!r} vs {norms['cpu']!r} (relative "
+        f"{norm_rel!r}), parameters after one AdamW step max abs diff "
+        f"{err!r}")
+    if (rel > LOSS_RTOL or grad_rel > GRAD_RTOL or norm_rel > GRAD_RTOL
+            or err > PARAM_TOL):
+        raise AssertionError("LM training: device and plain path disagree")
+    return {"loss_rel": rel, "grad_rel": grad_rel, "grad_norm_rel": norm_rel,
+            "param_err": err}
+
+
 def check_serving_small(device):
     """smollm-135m width with 2 layers and a 512-token vocabulary, the same
     weights on both sides: prefill logits and caches on the card within
@@ -2739,6 +3007,19 @@ def main() -> int:
     fa_launches, serving = drive_serving(device)
     torch.cuda.empty_cache()
 
+    # -- the LM training path -------------------------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        lm_training = drive_lm_training(device, tmp)
+    launched = (forest_predict.launches, histogram.launches,
+                flash_attention.launches)
+    if any(launched):
+        raise AssertionError(f"LM training launched {launched} kernels: its "
+                             "attention is mea_attention, not the kernel")
+    log("LM training phase: no kernel of the three launched (tree_predict, "
+        "hist, flash_attention: 0, 0, 0)")
+    torch.cuda.empty_cache()
+
     # -- the comparison plane ------------------------------------------------
     forest_predict.launches = histogram.launches = flash_attention.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -2757,6 +3038,7 @@ def main() -> int:
     check_small(device)
     check_training_small(device)
     check_serving_small(device)
+    lm_training["card_vs_cpu"] = check_training_lm_small(device)
 
     log(card)     # again here, where a run's tail shows it beside the numbers
     ht = hist_timing["level6"]
@@ -2804,6 +3086,7 @@ def main() -> int:
                                  "csrc/flash_attention_bf16.cuh",
                           sass=sass),
                       "serving": serving,
+                      "lm_training": lm_training,
                       "forest_serving": dict(
                           forest_serving, tree_predict_launches=fs_tp,
                           hist_launches=fs_hist),

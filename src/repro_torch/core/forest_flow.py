@@ -70,7 +70,8 @@ class ForestGenerativeModel:
 
     def trees_at_best_iteration(self):
         """Paper Fig. 3: trees kept per timestep (mean over y, sub)."""
-        return np.mean(self._host()["best_round"] + 1, axis=(1, 2))
+        assert self.artifacts is not None, "fit() first"
+        return self.artifacts.trees_at_best_iteration()
 
     # -- legacy attribute surface ------------------------------------------
 

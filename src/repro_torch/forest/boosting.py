@@ -34,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.config import ForestConfig
+from repro_torch.forest.split import ordered_sum
 from repro_torch.forest.tree import (all_reduce_sum, gather_leaves,
                                      grow_tree, predict_tree_codes,
                                      predict_tree_values)
@@ -51,14 +52,17 @@ class BoostResult(NamedTuple):
 def _wmse(pred, tgt, w, group=None):
     """Weighted MSE per lane: pred/tgt ``[S, n, out]``, w ``[n]`` -> ``[S]``.
 
-    The numerator is accumulated in float64 and rounded once to float32, so
-    a lane's loss does not depend on which other lanes share the batch.
-    Over the data ranks of ``group`` both sums are then added in float32,
-    as the JAX package's ``psum`` adds them.
+    Both sums add in :func:`~repro_torch.forest.split.ordered_sum`'s fixed
+    order, so a lane's loss (and with it ``best_round``) is the same on
+    every device. They accumulate in float64 and are rounded once to
+    float32, so a lane's loss does not depend on which other lanes share
+    the batch. Over the data ranks of ``group`` both sums are then added
+    in float32, as the JAX package's ``psum`` adds them.
     """
-    num = torch.sum(w[None, :, None] * torch.square(pred - tgt), dim=(1, 2),
-                    dtype=torch.float64).to(torch.float32)
-    den = (torch.sum(w) * tgt.shape[2]).reshape(1)
+    sq = (w[None, :, None] * torch.square(pred - tgt)).double()
+    num = ordered_sum(sq.flatten(1)).to(torch.float32)
+    den = (ordered_sum(w.double()).to(torch.float32)
+           * tgt.shape[2]).reshape(1)
     num = all_reduce_sum(num, group)
     den = all_reduce_sum(den, group)
     return num / torch.clamp(den, min=1e-12)

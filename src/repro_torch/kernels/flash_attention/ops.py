@@ -62,8 +62,15 @@ def flash_attention(q, k, v, causal: bool = True):
     """q ``[B, Hq, Sq, d]``, k and v ``[B, Hkv, Skv, d]`` (Hq = G·Hkv),
     float32 or bfloat16 -> ``softmax(q·kᵀ/√d)·v`` ``[B, Hq, Sq, d]`` in q's
     dtype, as :func:`.ref.attention_ref`. ``causal`` masks key j from query
-    i where j > i (aligned top-left); any Sq and Skv."""
+    i where j > i (aligned top-left); any Sq and Skv. The kernel has no
+    backward: inputs that require grad (with grad enabled) are refused,
+    on either device, rather than given a result without a gradient
+    (training attends through ``models.attention.mea_attention``)."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention has no backward: its inputs "
+                         "require grad (train through "
+                         "repro_torch.models.attention.mea_attention)")
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal)
     if q.device.type != "cuda":

@@ -1,11 +1,16 @@
-"""GQA attention: prefill through the flash-attention kernel, cached decode.
+"""GQA attention: training, prefill through the flash-attention kernel,
+cached decode.
 
 A port of the GQA part of ``repro.models.attention``. Where the JAX package
 computes prefill attention with its XLA path (``mea_attention``), the port
 calls :func:`repro_torch.kernels.flash_attention.ops.flash_attention`, which
 computes the same function: the hand-written kernel for a CUDA tensor, the
-plain version for a CPU tensor. Decode attends one token against the cache
-in plain PyTorch, as the JAX package does outside any Pallas kernel.
+plain version for a CPU tensor. That kernel has no backward (nor has the
+JAX package's Pallas kernel), so the training objective attends through
+:func:`mea_attention`, the JAX package's blocked online-softmax attention
+in plain, differentiable PyTorch: its caller passes it to
+:func:`apply_gqa` as ``attend``. Decode attends one token against the
+cache in plain PyTorch, as the JAX package does outside any Pallas kernel.
 
 Layouts are the JAX package's: ``wq`` ``[D, H, dh]``, ``wk``/``wv``
 ``[D, Hkv, dh]``, ``wo`` ``[H, dh, D]``, q ``[B, H, S, dh]`` and the KV
@@ -16,9 +21,11 @@ double it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -56,14 +63,16 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
               theta: float, window: int = 0, cache: Optional[Dict] = None,
-              cache_index: Optional[int] = None, cross_kv=None):
+              cache_index: Optional[int] = None, cross_kv=None,
+              attend: Callable = flash_attention):
     """Causal GQA self-attention with RoPE.
 
-    Prefill (``cache is None``): full-sequence attention through
-    ``flash_attention``; returns ``(y, (k, v))`` with k, v ``[B, Hkv, S,
-    dh]``. Decode (``cache={"k", "v"}`` of ``[B, Hkv, S_cache, dh]``,
-    ``cache_index`` the new token's position): writes the token's k/v into
-    the cache in place and returns ``(y, cache)``.
+    Full sequence (``cache is None``): ``attend(q, k, v, causal=True)``,
+    the kernel (prefill) or :func:`mea_attention` (the training objective,
+    whose gradient flows through it); returns ``(y, (k, v))`` with k, v
+    ``[B, Hkv, S, dh]``. Decode (``cache={"k", "v"}`` of ``[B, Hkv,
+    S_cache, dh]``, ``cache_index`` the new token's position): writes the
+    token's k/v into the cache in place and returns ``(y, cache)``.
     """
     if window > 0:
         raise NotImplementedError(
@@ -88,13 +97,152 @@ def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
         cv[:, :, cache_index:cache_index + 1].copy_(v)
         out = _decode_attention(q, ck.to(dt), cv.to(dt), cache_index)
     else:
-        out = flash_attention(q, k, v, causal=True)
+        out = attend(q, k, v, causal=True)
     hq, dh, d = p.wo.shape
     y = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], hq * dh) @ \
         p.wo.to(dt).reshape(hq * dh, d)
     if cache is not None:
         return y, cache
     return y, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# blocked online-softmax attention (the training path)
+# ---------------------------------------------------------------------------
+
+def _attn_reference(q, k, v, causal: bool, window: int,
+                    q_offset: int) -> torch.Tensor:
+    """Naive attention, for sequences within one block.
+
+    q: ``[B, Hq, Sq, d]``, k/v: ``[B, Hkv, Skv, d]`` with Hq = G·Hkv."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.reshape(b, hkv, g, sq, d).float()
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    scores = torch.where(mask, scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", pr, v.float())
+    return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def mea_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_block: int = 512, kv_block: int = 1024,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Memory-efficient attention with GQA head grouping (the JAX package's
+    default, blocked form).
+
+    q: ``[B, Hq, Sq, d]``; k, v: ``[B, Hkv, Skv, d]``. An online softmax
+    over kv blocks for each q block, fp32 running statistics, so the
+    largest live intermediate is one ``[B, Hkv, G, q_block, kv_block]``
+    tile. ``window > 0`` adds a sliding-window band to the causal mask.
+    Causal, a q block visits only the kv blocks at or before it: the JAX
+    package computes the others and discards them, which gives the same
+    numbers.
+    """
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if sq <= q_block and skv <= kv_block:
+        return _attn_reference(q, k, v, causal, window, q_offset)
+    g = hq // hkv
+    q_block = min(q_block, sq)
+    kv_block = min(kv_block, skv)
+    n_q, n_kv = -(-sq // q_block), -(-skv // kv_block)
+    qp = F.pad(q, (0, 0, 0, n_q * q_block - sq))
+    kp = F.pad(k, (0, 0, 0, n_kv * kv_block - skv))
+    vp = F.pad(v, (0, 0, 0, n_kv * kv_block - skv))
+    qp = qp.reshape(b, hkv, g, n_q, q_block, d)
+    kp = kp.reshape(b, hkv, n_kv, kv_block, d)
+    vp = vp.reshape(b, hkv, n_kv, kv_block, d)
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    outs = []
+    for qi in range(n_q):
+        qb = (qp[:, :, :, qi] * scale).float()        # [b, hkv, g, qblk, d]
+        q_pos = qi * q_block + torch.arange(q_block, device=dev) + q_offset
+        acc = torch.zeros((b, hkv, g, q_block, d), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, hkv, g, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, q_block), dtype=torch.float32,
+                        device=dev)
+        n_needed = n_kv
+        if causal and window <= 0:
+            n_needed = min(((qi + 1) * q_block + q_offset + kv_block - 1)
+                           // kv_block, n_kv)
+        for ki in range(n_needed):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb,
+                             kp[:, :, ki].float())
+            k_pos = ki * kv_block + torch.arange(kv_block, device=dev)
+            msk = (k_pos < skv)[None, :]
+            if causal:
+                msk = msk & (q_pos[:, None] >= k_pos[None, :])
+            if window > 0:
+                msk = msk & (q_pos[:, None] - k_pos[None, :] < window)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            pr = torch.exp(s - m_new[..., None])
+            l = l * alpha + pr.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", pr, vp[:, :, ki].float())
+            m = m_new
+        outs.append((acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype))
+    out = torch.stack(outs, dim=3)         # [b, hkv, g, n_q, q_block, d]
+    return out.reshape(b, hq, n_q * q_block, d)[:, :, :sq]
+
+
+def mea_attention_packed(q, k, v, *, block: int = 1024) -> torch.Tensor:
+    """Causal attention over only the visible block pairs (the JAX
+    package's ``packed`` form): the lower triangle ``[(i, j) for i in
+    q_blocks for j <= i]``, nq(nq+1)/2 pairs instead of nq·nkv, with fp32
+    running statistics for every q block. Needs Sq == Skv, a multiple of
+    the block."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    block = min(block, sq)
+    if sq % block or k.shape[2] != sq:
+        raise ValueError(f"packed attention needs Sq == Skv, a multiple of "
+                         f"the block: Sq={sq}, Skv={k.shape[2]}, "
+                         f"block={block}")
+    nb = sq // block
+    qp = q.reshape(b, hkv, g, nb, block, d)
+    kp = k.reshape(b, hkv, nb, block, d)
+    vp = v.reshape(b, hkv, nb, block, d)
+    scale = 1.0 / (d ** 0.5)
+    dev = q.device
+    diag = (torch.arange(block, device=dev)[:, None]
+            >= torch.arange(block, device=dev)[None, :])
+    acc = [torch.zeros((b, hkv, g, block, d), dtype=torch.float32,
+                       device=dev) for _ in range(nb)]
+    m = [torch.full((b, hkv, g, block), NEG_INF, dtype=torch.float32,
+                    device=dev) for _ in range(nb)]
+    l = [torch.zeros((b, hkv, g, block), dtype=torch.float32, device=dev)
+         for _ in range(nb)]
+    for i in range(nb):
+        qb = qp[:, :, :, i].float() * scale
+        for j in range(i + 1):
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kp[:, :, j].float())
+            if i == j:
+                s = torch.where(diag, s, NEG_INF)
+            m_new = torch.maximum(m[i], s.amax(dim=-1))
+            alpha = torch.exp(m[i] - m_new)
+            pr = torch.exp(s - m_new[..., None])
+            l[i] = l[i] * alpha + pr.sum(dim=-1)
+            acc[i] = acc[i] * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", pr, vp[:, :, j].float())
+            m[i] = m_new
+    out = torch.stack([a / torch.clamp(li[..., None], min=1e-30)
+                       for a, li in zip(acc, l)], dim=3)
+    return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
 def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -7,13 +7,19 @@ them, the port keeps one module per group (``nn.ModuleDict`` keyed
 ``"{i}_{kind}"``, as the JAX tree is) and loops over them in Python.
 Prefill caches are stacked per segment like the JAX package's, ``{key:
 {"k": [n_groups, B, Hkv, S, dh], "v": ...}}``, so they compare leaf by leaf.
+The training forward, :func:`apply_segment`, recomputes a group's
+activations in the backward pass as the remat policy says (``"none"``,
+``"full"``, ``"dots"``), as the JAX package's ``jax.checkpoint`` of a
+group does.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import functools
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.models import attention as attn
@@ -58,20 +64,23 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device=None,
 
 
 def apply_layer(p: DenseLayer, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ArchConfig, kind: str, *, collect_kv: bool = False):
-    """Residual layer body over a full sequence.
+                cfg: ArchConfig, kind: str, *, collect_kv: bool = False,
+                attend: Callable = attn.flash_attention):
+    """Residual layer body over a full sequence; ``attend`` is the
+    attention (the kernel for prefill, :func:`~.attention.mea_attention`
+    in training).
 
-    Returns ``(x, kv)``: kv is the layer's cache contribution ``{"k", "v"}``
-    when ``collect_kv`` (prefill), else None. The JAX package also returns an
-    auxiliary loss, which the dense kind does not have."""
+    Returns ``(x, aux, kv)``: aux is the layer's auxiliary loss (0.0 for
+    the dense kind, which has none), kv its cache contribution ``{"k",
+    "v"}`` when ``collect_kv`` (prefill), else None."""
     _check_kind(kind)
     h, kv_pair = attn.apply_gqa(
         p.attn, apply_norm(p.norm_attn, x, cfg.norm), positions,
-        theta=cfg.rope_theta)
+        theta=cfg.rope_theta, attend=attend)
     x = x + h
     kv = {"k": kv_pair[0], "v": kv_pair[1]} if collect_kv else None
     x = x + apply_mlp(p.mlp, apply_norm(p.norm_mlp, x, cfg.norm), cfg.act)
-    return x, kv
+    return x, 0.0, kv
 
 
 def apply_layer_decode(p: DenseLayer, x: torch.Tensor, pos: int,
@@ -111,6 +120,58 @@ def init_segment(gen: torch.Generator, cfg: ArchConfig,
         for _ in range(n_groups))
 
 
+# the matmuls without batch dimensions (projections, MLP), whose outputs the
+# "dots" policy keeps: jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the remat policy: ``"none"`` keeps every activation for
+    the backward pass, ``"full"`` keeps only ``fn``'s inputs and recomputes
+    the rest, ``"dots"`` keeps the matmul outputs and recomputes the rest."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat policy {policy!r}: expected 'none', 'full' or "
+                     "'dots'")
+
+
+def apply_segment(seg: nn.ModuleList, x: torch.Tensor,
+                  positions: torch.Tensor, cfg: ArchConfig,
+                  kinds: Tuple[str, ...], *, remat_policy: str = "full"):
+    """The training forward over the segment's groups, each under
+    ``remat_policy``; attention is :func:`~.attention.mea_attention`.
+    Returns ``(x, aux)``, aux summed over the layers."""
+
+    def group_body(group, xc):
+        aux = 0.0
+        for i, kind in enumerate(kinds):
+            xc, a, _ = apply_layer(group[f"{i}_{kind}"], xc, positions, cfg,
+                                   kind, attend=attn.mea_attention)
+            aux = aux + a
+        return xc, aux
+
+    body = _remat(group_body, remat_policy)
+    aux = 0.0
+    for group in seg:
+        x, a = body(group, x)
+        aux = aux + a
+    return x, aux
+
+
 def apply_segment_prefill(seg: nn.ModuleList, x: torch.Tensor,
                           positions: torch.Tensor, cfg: ArchConfig,
                           kinds: Tuple[str, ...]):
@@ -121,8 +182,8 @@ def apply_segment_prefill(seg: nn.ModuleList, x: torch.Tensor,
     for group in seg:
         for i, kind in enumerate(kinds):
             key = f"{i}_{kind}"
-            x, kv = apply_layer(group[key], x, positions, cfg, kind,
-                                collect_kv=True)
+            x, _, kv = apply_layer(group[key], x, positions, cfg, kind,
+                                   collect_kv=True)
             kvs[key].append(kv)
     cache = {key: {name: torch.stack([kv[name] for kv in layers])
                    for name in layers[0]}

@@ -1,4 +1,4 @@
-"""Core layers: norms, MLPs, embeddings, RoPE.
+"""Core layers: norms, MLPs, embeddings, RoPE, the softmax cross entropy.
 
 A port of ``repro.models.layers``. Parameters live in ``nn.Module``s whose
 attribute names are the JAX package's dictionary keys (``scale``, ``wi``,
@@ -98,7 +98,7 @@ def apply_mlp(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding
+# Embedding / unembedding
 # ---------------------------------------------------------------------------
 
 class Embed(nn.Module):
@@ -116,7 +116,19 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, device=None,
 
 
 def embed_tokens(p: Embed, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p.tokens[tokens.long()].to(dtype)
+    # F.embedding, not indexing: on CUDA its gradient sums each row's
+    # contributions in a fixed order (indexing's backward may add them with
+    # atomics), so a training step gives the same bits every time it runs
+    return F.embedding(tokens.long(), p.tokens).to(dtype)
+
+
+def unembed(p_embed: Embed, p_head, x: torch.Tensor,
+            tie: bool) -> torch.Tensor:
+    """Project to logits in fp32 for a stable softmax-xent; ``p_head`` has
+    ``w`` ``[d, vocab]`` (unused with tied embeddings)."""
+    if tie:
+        return (x @ p_embed.tokens.to(x.dtype).T).float()
+    return (x @ p_head.w.to(x.dtype)).float()
 
 
 # ---------------------------------------------------------------------------
@@ -150,3 +162,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy. logits ``[..., V]`` fp32, labels ``[...]`` int."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)

@@ -1,9 +1,12 @@
-"""Top-level LM assembly: init, prefill, decode.
+"""Top-level LM assembly: init, train loss, prefill, decode.
 
-A port of ``repro.models.lm`` for the ``dense`` family: the serving steps
-``prefill_step`` (full-sequence forward emitting last-position logits and
-the KV cache) and ``decode_step`` (one new token against the cache). The
-training objective (``loss_fn``, ``chunked_xent``) is not ported yet.
+A port of ``repro.models.lm`` for the ``dense`` family: the training
+objective ``loss_fn`` (next-token cross entropy through
+:func:`chunked_xent`, attention through ``mea_attention``, which has a
+gradient), and the serving steps ``prefill_step`` (full-sequence forward
+emitting last-position logits and the KV cache, attention through the
+flash-attention kernel) and ``decode_step`` (one new token against the
+cache).
 """
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.dispatch import Device, resolve_device
@@ -57,6 +61,77 @@ def _head_weight(params: LM, cfg: ArchConfig) -> torch.Tensor:
 
 def _device(params: LM) -> torch.device:
     return params.embed.tokens.device
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def _xent_sums(x, w, labels, mask):
+    """``(sum of the masked per-token losses, sum of the mask)`` of one
+    slice of the sequence: logits in fp32."""
+    logits = (x @ w.to(x.dtype)).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_xent(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Cross entropy without materialising ``[B, S, V]`` logits.
+
+    x ``[B, S, D]`` activations; w ``[D, V]``; labels ``[B, S]`` int; mask
+    ``[B, S]``. Past ``chunk`` tokens the sequence goes in ``chunk``-sized
+    slices, each recomputed in the backward pass, so at most one slice's
+    logits live at a time, forward or backward (the JAX package scans the
+    slices).
+    """
+    b, s, _ = x.shape
+    if s <= chunk:
+        tot, cnt = _xent_sums(x, w, labels, mask)
+        return tot / torch.clamp(cnt, min=1.0)
+    if s % chunk:
+        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        t, n = checkpoint(_xent_sums, x[:, c0:c0 + chunk], w,
+                          labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _backbone(params: LM, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ArchConfig, remat_policy: str):
+    aux = 0.0
+    for (kinds, _), seg in zip(blocks.segments_for(cfg), params.segments):
+        x, a = blocks.apply_segment(seg, x, positions, cfg, kinds,
+                                    remat_policy=remat_policy)
+        aux = aux + a
+    return apply_norm(params.final_norm, x, cfg.norm), aux
+
+
+def loss_fn(params: LM, batch: Dict[str, torch.Tensor], cfg: ArchConfig, *,
+            dtype=torch.bfloat16, remat_policy: str = "full",
+            aux_weight: float = 0.01):
+    """Train objective: the mean next-token cross entropy of
+    ``batch["tokens"]`` against ``batch["labels"]`` (``[B, S]``; a negative
+    label is masked out), computed in ``dtype`` from the fp32 weights.
+    Returns ``(loss, {"xent", "aux"})``; the loss has a gradient."""
+    if cfg.family in ("vlm", "audio_encdec"):
+        raise blocks._not_ported(f"the {cfg.family!r} family's loss")
+    dev = _device(params)
+    tokens = batch["tokens"].to(dev)
+    b, s = tokens.shape
+    x = embed_tokens(params.embed, tokens, dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+    x, aux = _backbone(params, x, pos, cfg, remat_policy)
+    labels = batch["labels"].to(dev)
+    mask = (labels >= 0).float()
+    xent = chunked_xent(x, _head_weight(params, cfg),
+                        torch.clamp(labels, min=0), mask)
+    return xent + aux_weight * aux, {"xent": xent, "aux": aux}
 
 
 @torch.inference_mode()

@@ -42,8 +42,9 @@ batch is :meth:`ModelRegistry.dispatch`: its acquire, its publication and
 its enqueue hold the stream's lock, as ``register`` and ``swap`` do, so
 any thread of rank 0 may issue them. Only batches acquire on a mesh
 (:meth:`ModelRegistry.handle` peeks), so every rank's promotions and
-demotions follow the same sequence. Impute runs on rank 0 alone and is
-refused where the mesh splits the model's classes.
+demotions follow the same sequence. An impute is a command too
+(:meth:`ModelRegistry.impute`): every rank imputes the rows of its classes
+from its slice and the rows are gathered, as ``sample`` gathers them.
 """
 from __future__ import annotations
 
@@ -60,8 +61,10 @@ from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.obs import MetricsRegistry
 from repro_torch.tabgen import TabularGenerator, default_sampler
 from repro_torch.tabgen.artifacts import (_TENSOR_FIELDS, ForestArtifacts,
-                                          class_span, mesh_device)
-from repro_torch.tabgen.sampling import resolve_mesh, sample_labels
+                                          mesh_device)
+from repro_torch.tabgen.imputation import impute
+from repro_torch.tabgen.sampling import (checked_gathers, resolve_mesh,
+                                         sample_labels)
 
 DEFAULT_BUCKETS = (64, 256, 1024)
 
@@ -109,15 +112,16 @@ class ModelHandle:
 
     On a mesh ``artifacts`` is the rank's slice when hot, the whole host
     copy ``host`` when cold; ``nbytes`` counts the whole model,
-    ``rank_nbytes`` the slice. A batch there is one rank's part of a
-    collective: :meth:`generate_async` goes through the registry's
-    ``dispatch`` (``dispatch=``), which tells the other ranks.
+    ``rank_nbytes`` the slice. A batch or an impute there is one rank's
+    part of a collective: :meth:`generate_async` and :meth:`impute` go
+    through the registry's ``dispatch`` and ``impute`` (``registry=``),
+    which tell the other ranks.
     """
 
     def __init__(self, name: str, artifacts: ForestArtifacts, *,
                  device: Device, schema=None, samplers: Sequence[str] = (),
                  buckets: Sequence[int] = DEFAULT_BUCKETS, version: int = 1,
-                 mesh=None, dispatch=None,
+                 mesh=None, registry: Optional["ModelRegistry"] = None,
                  host: Optional[ForestArtifacts] = None):
         cfg = artifacts.config
         self.name = name
@@ -126,7 +130,7 @@ class ModelHandle:
         self.schema = schema
         self.version = version
         self.mesh = mesh
-        self._dispatch = dispatch
+        self._registry = registry
         self.host = host if host is not None else artifacts
         self.samplers = tuple(samplers) or (
             default_sampler(cfg.method, cfg.diff_sampler),)
@@ -168,14 +172,15 @@ class ModelHandle:
         mesh, through the registry's ``dispatch`` (which refuses a handle
         that a swap has replaced)."""
         pad_to = self.bucket(n, seed) if pad_to is None else pad_to
-        if self._dispatch is not None:
-            return self._dispatch(self.name, n, sampler, seed=seed,
-                                  pad_to=pad_to, version=self.version)[1]
+        if self._registry is not None:
+            return self._registry.dispatch(self.name, n, sampler, seed=seed,
+                                           pad_to=pad_to,
+                                           version=self.version)[1]
         return self.enqueue(n, sampler, seed=seed, pad_to=pad_to)
 
     def enqueue(self, n: int, sampler: str, *, seed: int, pad_to: int):
         """This rank's part of a batch: the solve (on a mesh, the sharded
-        solve and its gathers) and the copy to the host, enqueued."""
+        solve and the gathers) and the copy to the host, enqueued."""
         return self._generator().generate_async(
             n, sampler=sampler, seed=seed, pad_to=pad_to, mesh=self.mesh)
 
@@ -186,17 +191,24 @@ class ModelHandle:
 
     def impute(self, X_missing, y=None, *, seed: int = 0,
                refine_rounds: int = 3) -> np.ndarray:
-        """Impute on this process's device (on a mesh, rank 0 alone: no
-        collective). A mesh that splits the classes is refused: no rank
-        holds them all, and the sharded impute is not ported."""
-        n_y = self.artifacts.n_y
-        if self.mesh is not None and class_span(self.mesh, n_y) != (0, n_y):
-            raise ValueError(
-                f"model {self.name!r}: the mesh splits its {n_y} classes "
-                "over its model ranks; impute on a split model is not "
-                "ported")
+        """Impute on this process's device; on a mesh, through the
+        registry's ``impute`` (a command: every rank imputes its classes'
+        rows)."""
+        if self._registry is not None:
+            return self._registry.impute(self.name, X_missing, y, seed=seed,
+                                         refine_rounds=refine_rounds,
+                                         version=self.version)
         return self._generator().impute(X_missing, y, seed=seed,
                                         refine_rounds=refine_rounds)
+
+    def impute_part(self, Z: np.ndarray, y, *, seed: int,
+                    refine_rounds: int) -> np.ndarray:
+        """This rank's part of an impute on a mesh, from the model rows
+        ``Z`` that ``TabularGenerator.encode_missing`` made and checked on
+        rank 0: its classes' rows, then the gathers. Returns the model rows
+        filled."""
+        return impute(self._generator().artifacts, Z, y, seed=seed,
+                      refine_rounds=refine_rounds, mesh=self.mesh)
 
     def warmup(self) -> float:
         """Run every (sampler, bucket) once: loads the kernel libraries and
@@ -324,7 +336,7 @@ class ModelRegistry:
             samplers=like.samplers, buckets=like.buckets,
             version=like.version if version is None else version,
             mesh=self.mesh, host=host_artifacts,
-            dispatch=None if self.stream is None else self.dispatch)
+            registry=None if self.stream is None else self)
 
     def _command(self):
         """On a mesh, the stream's lock: a command is published and applied
@@ -335,12 +347,18 @@ class ModelRegistry:
 
     @contextlib.contextmanager
     def _applying(self):
-        """The part of a command after its publication: on a mesh, a
-        failure there breaks the stream (the other ranks went on)."""
+        """The part of a command after its publication: on a mesh, its
+        first gather runs the stream's failure check first, and a failure
+        breaks the stream (the other ranks went on)."""
         try:
-            yield
+            if self.stream is None:
+                yield
+            else:
+                with checked_gathers(self.stream.settle):
+                    yield
         except BaseException as exc:
             if self.stream is not None:
+                self.stream.settle(exc)   # before the others' gathers
                 self.stream.abort(exc)
             raise
 
@@ -470,9 +488,45 @@ class ModelRegistry:
                 return handle, handle.enqueue(n, sampler, seed=seed,
                                               pad_to=pad_to)
 
+    def impute(self, name: str, X_missing, y=None, *, seed: int = 0,
+               refine_rounds: int = 3,
+               version: Optional[int] = None) -> np.ndarray:
+        """Fill the NaN cells of ``X_missing`` with model ``name``. On a
+        mesh, under the stream's lock: checked (``version``, a handle's,
+        must still be current; the rows and labels must fit the model, so
+        a bad request is refused before any other rank hears of it), the
+        model rows published to the other ranks, then every rank imputes
+        its classes' rows (:meth:`impute_part`) and the rows are gathered.
+        Without a mesh, the acquired handle imputes."""
+        if self.stream is None:
+            return self.acquire(name).impute(X_missing, y, seed=seed,
+                                             refine_rounds=refine_rounds)
+        with self.stream.lock:
+            handle = self.peek(name)
+            if version is not None and version != handle.version:
+                raise ValueError(
+                    f"model {name!r} version {version} was swapped out "
+                    f"(now {handle.version}): acquire it again")
+            Z = handle._gen.encode_missing(X_missing, y)
+            y = None if y is None else np.asarray(y)
+            self.stream.publish("impute", model=name, rows=Z, labels=y,
+                                seed=int(seed),
+                                refine_rounds=int(refine_rounds))
+            filled = self.impute_part(name, Z, y, seed=seed,
+                                      refine_rounds=refine_rounds)
+        return handle._gen.decode_imputed(X_missing, filled)
+
+    def impute_part(self, name: str, Z: np.ndarray, y, *, seed: int,
+                    refine_rounds: int) -> np.ndarray:
+        """A published impute on this rank (rank 0 after :meth:`impute`'s
+        check, a follower replaying it); a failure breaks the stream."""
+        with self._applying():
+            return self.peek(name).impute_part(Z, y, seed=seed,
+                                               refine_rounds=refine_rounds)
+
     def handle(self, name: str) -> ModelHandle:
-        """The handle for work outside a batch (warmup, impute, a
-        synchronous generate): :meth:`acquire` without a mesh. On a mesh,
+        """The handle for work outside a batch (warmup, a synchronous
+        generate): :meth:`acquire` without a mesh. On a mesh,
         :meth:`peek`: there only batches acquire, on every rank alike."""
         return self.acquire(name) if self.stream is None else self.peek(name)
 

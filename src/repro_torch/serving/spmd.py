@@ -12,6 +12,10 @@ repeat every step rank 0 takes on its device, in the order rank 0 takes it.
   the same :meth:`~repro_torch.serving.ModelRegistry.dispatch` (acquire,
   so its placement makes the promotions and LRU demotions rank 0's made,
   then the sharded ``sample_async``, whose gathers pair with rank 0's);
+* ``impute`` — ``(model, rows, labels, seed, refine_rounds)``, the model
+  rows rank 0 checked: the follower makes the same
+  :meth:`~repro_torch.serving.ModelRegistry.impute_part` (its classes'
+  rows, then the gathers that pair with rank 0's);
 * ``stop`` — the followers leave :func:`follow`.
 
 Commands travel on a gloo side group (``broadcast_object_list`` on NCCL
@@ -26,9 +30,15 @@ A failure after a command was published is fatal to the stream: the ranks'
 collectives no longer pair. :meth:`CommandStream.abort` marks it broken
 (every later command raises :class:`StreamBroken`, so no later batch
 returns rows) and calls ``on_break`` (``serve_http`` stops serving and
-exits non-zero). A follower whose replay fails raises out of
-:func:`follow`. A rank that leaves closes its connections, so the other
-rank's pending collective fails at once instead of waiting.
+exits non-zero). A batch or an impute has one failure check,
+:meth:`CommandStream.settle`: every rank reports on the gloo side group
+whether its part reached its first gather (or failed before it), and
+every rank enters that gather only if all did. A rank whose part fails
+reports the failure there; so rank 0 raises as soon as a follower's
+replay fails, and a follower as soon as rank 0's part fails, instead of
+waiting in a gather that will not pair (an NCCL gather does not notice a
+peer that left). A follower whose replay fails raises out of
+:func:`follow`.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from repro_torch.tabgen.artifacts import (_TENSOR_FIELDS, ForestArtifacts,
@@ -45,6 +56,10 @@ from repro_torch.tabgen.artifacts import (_TENSOR_FIELDS, ForestArtifacts,
 
 # a follower of an idle server waits for its next command this long
 IDLE_TIMEOUT = datetime.timedelta(days=7)
+# the failure check waits this long for the slowest rank's part of a batch
+SETTLE_TIMEOUT = datetime.timedelta(minutes=5)
+# the commands whose collectives the failure check guards
+_CHECKED = ("batch", "impute")
 
 
 class StreamBroken(RuntimeError):
@@ -75,6 +90,8 @@ class CommandStream:
         self.broken: Optional[BaseException] = None
         # called once, from the thread that broke the stream
         self.on_break: Optional[Callable[[], None]] = None
+        # a batch or impute published (received) whose failure check is due
+        self.pending = False
 
     @property
     def leader(self) -> bool:
@@ -96,6 +113,32 @@ class CommandStream:
             self.closed = True
         if self.group is not None:
             dist.broadcast_object_list([(op, args)], src=0, group=self.group)
+            self.pending = op in _CHECKED
+
+    def settle(self, failure: Optional[BaseException] = None) -> None:
+        """The failure check of a published batch or impute, on every rank
+        once: ``failure`` is this rank's exception if its part failed,
+        ``None`` when the part reached its first gather. Raises
+        :class:`StreamBroken` there if any rank failed (or the check itself
+        did: a rank left, or did not report within ``SETTLE_TIMEOUT``). A
+        failing rank only reports: its own exception is the one it raises.
+        Nothing to do on one rank, or with no check due."""
+        if not self.pending:
+            return
+        self.pending = False
+        flag = torch.tensor([0 if failure is None else 1], dtype=torch.int32)
+        try:
+            dist.all_reduce(flag, group=self.group,
+                            async_op=True).wait(SETTLE_TIMEOUT)
+        except RuntimeError as exc:
+            if failure is None:
+                raise StreamBroken(f"the failure check failed ({exc!r}): "
+                                   "restart the mesh") from exc
+            return
+        if failure is None and int(flag) > 0:
+            raise StreamBroken(
+                f"{int(flag)} rank(s) failed their part of this command "
+                "before its gather: restart the mesh")
 
     def abort(self, exc: BaseException) -> None:
         """``exc`` struck after a publication: on more than one rank, break
@@ -155,23 +198,39 @@ def follow(registry) -> int:
         if op == "stop":
             stream.closed = True
             return batches
-        if op in ("register", "swap"):
-            art, schema = payload_model(args["model"])
-            schema = schema or _schema(args["schema"])
-            if op == "register":
-                registry.register(args["name"], art, schema=schema,
-                                  samplers=args["samplers"],
-                                  buckets=args["buckets"], hot=args["hot"])
-            else:
-                registry.swap(args["name"], art, schema=schema,
-                              keep_schema=args["keep_schema"])
-        elif op == "batch":
-            _, sample = registry.dispatch(
-                args["model"], args["n"], args["sampler"], seed=args["seed"],
-                pad_to=args["pad_to"])
-            ready = getattr(sample, "ready", None)
-            if ready is not None:
-                ready.synchronize()
-            batches += 1
+        stream.pending = op in _CHECKED
+        try:
+            batches += _replay(registry, op, args)
+        except BaseException as exc:
+            stream.settle(exc)          # rank 0 learns of it at its check
+            raise
+
+
+def _replay(registry, op: str, args: dict) -> int:
+    """Apply one command of rank 0's on a follower; returns the batches it
+    replayed (0 or 1)."""
+    if op in ("register", "swap"):
+        art, schema = payload_model(args["model"])
+        schema = schema or _schema(args["schema"])
+        if op == "register":
+            registry.register(args["name"], art, schema=schema,
+                              samplers=args["samplers"],
+                              buckets=args["buckets"], hot=args["hot"])
         else:
-            raise ValueError(f"unknown command {op!r}")
+            registry.swap(args["name"], art, schema=schema,
+                          keep_schema=args["keep_schema"])
+    elif op == "batch":
+        _, sample = registry.dispatch(
+            args["model"], args["n"], args["sampler"], seed=args["seed"],
+            pad_to=args["pad_to"])
+        ready = getattr(sample, "ready", None)
+        if ready is not None:
+            ready.synchronize()
+        return 1
+    elif op == "impute":
+        registry.impute_part(args["model"], args["rows"], args["labels"],
+                             seed=args["seed"],
+                             refine_rounds=args["refine_rounds"])
+    else:
+        raise ValueError(f"unknown command {op!r}")
+    return 0

@@ -199,6 +199,11 @@ class ForestArtifacts:
         feat, thr_val, leaf, _, _ = self.class_tensors(yi, yi + 1)
         return PackedForest(feat, thr_val, leaf, self.config.multi_output)
 
+    def trees_at_best_iteration(self) -> np.ndarray:
+        """Paper Fig. 3: trees kept per timestep (mean over y, sub)."""
+        self._require_whole("trees_at_best_iteration")
+        return np.mean(self.best_round.cpu().numpy() + 1, axis=(1, 2))
+
     def shard(self, mesh) -> "ForestArtifacts":
         """This rank's slice for sampling on ``mesh``: the classes
         :func:`class_span` gives it (all of them where classes are

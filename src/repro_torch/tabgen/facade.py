@@ -28,6 +28,7 @@ from repro_torch.core.mixed_types import TabularSchema, _isnan
 from repro_torch.kernels.dispatch import Device
 from repro_torch.tabgen.artifacts import ForestArtifacts
 from repro_torch.tabgen.fitting import _is_store, fit_artifacts
+from repro_torch.tabgen.imputation import check_impute_inputs
 from repro_torch.tabgen.imputation import impute as _impute
 from repro_torch.tabgen.sampling import sample_async as _sample_async
 
@@ -122,13 +123,28 @@ class TabularGenerator:
         return _DecodingHandle(handle, self.schema)
 
     def impute(self, X_missing, y=None, *, seed: int = 0,
-               refine_rounds: int = 3):
-        art = self._require_artifacts()
+               refine_rounds: int = 3, mesh=None):
+        """Fill the NaN cells of ``X_missing``. ``mesh`` imputes on a mesh
+        of ranks, every rank making the same call (see
+        :func:`~repro_torch.tabgen.impute`); the rows equal the unsharded
+        call's on the same device type."""
+        Z = self.encode_missing(X_missing, y)
+        filled = _impute(self._require_artifacts(), Z, y, seed=seed,
+                         refine_rounds=refine_rounds, mesh=mesh)
+        return self.decode_imputed(X_missing, filled)
+
+    def encode_missing(self, X_missing, y=None) -> np.ndarray:
+        """``X_missing`` as the model's rows (schema-encoded, NaN cells
+        kept), checked with ``y`` against the model
+        (:func:`~repro_torch.tabgen.imputation.check_impute_inputs`)."""
+        Z = (X_missing if self.schema is None
+             else self.schema.encode_with_missing(X_missing))
+        return check_impute_inputs(self._require_artifacts(), Z, y)[0]
+
+    def decode_imputed(self, X_missing, filled: np.ndarray):
+        """The imputed model rows ``filled`` as ``X_missing``'s rows."""
         if self.schema is None:
-            return _impute(art, X_missing, y, seed=seed,
-                           refine_rounds=refine_rounds)
-        Z = self.schema.encode_with_missing(X_missing)
-        filled = _impute(art, Z, y, seed=seed, refine_rounds=refine_rounds)
+            return filled
         out = self.schema.decode(filled)
         # observed raw cells are authoritative — only NaN cells get imputed
         X_missing = np.asarray(X_missing)

@@ -38,6 +38,8 @@ issues no collective.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -151,10 +153,29 @@ class _StepNoise:
         return z[self.cls, self.rows]
 
 
+_gather_check = threading.local()
+
+
+@contextlib.contextmanager
+def checked_gathers(check: Callable[[], None]):
+    """Within the block, this thread's next :func:`_gather` first calls
+    ``check()`` (once): a serving mesh's failure check, which raises there
+    when a rank failed its part of the command."""
+    _gather_check.fn = check
+    try:
+        yield
+    finally:
+        _gather_check.fn = None
+
+
 def _gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
     """``[size · t.shape[0], ...]``: ``t`` of every rank of ``group``
     stacked in rank order. On a CUDA group it is enqueued: the current
     stream waits for it, the host does not."""
+    check = getattr(_gather_check, "fn", None)
+    if check is not None:
+        _gather_check.fn = None
+        check()
     out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
     dist.all_gather_into_tensor(out, t.contiguous(), group=group)
     return out

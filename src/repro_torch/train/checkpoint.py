@@ -1,23 +1,155 @@
-"""Streaming checkpoints of the forest trainer: one ``batch_<b0>.npz`` per
-trained batch of ensembles and a ``manifest.json`` of the committed batches.
+"""Checkpoints: atomic, step-numbered, resumable.
 
-A copy of the batch-grid part of ``repro.train.checkpoint`` (stdlib and
-numpy only; the port may not import the JAX package). The files and the
-manifest's fingerprint are the JAX package's, so either package can resume
-the other's checkpoint of the same run. Every update is
-write-temp-then-``os.replace`` with an fsync, so a crash between writes
-always leaves a consistent (if slightly stale) manifest that a resume can
-trust.
+A copy of ``repro.train.checkpoint`` (stdlib and numpy only; the port may
+not import the JAX package), in two parts.
+
+The LM trainer's step-numbered trees, in the JAX package's layout:
+
+  <dir>/step_<N>/arrays.npz      the tree's leaves, ``leaf_<i>``
+  <dir>/step_<N>/treedef.json    structure + shapes + dtypes (integrity check)
+  <dir>/step_<N>/COMMITTED       written last: the commit marker
+
+A tree is nested dicts, lists and tuples whose leaves are arrays (numpy or
+torch); it flattens in ``jax.tree_util``'s order (a dict's keys sorted,
+``None`` an empty subtree), so either package restores the other's
+checkpoint of the same tree.
+
+The forest trainer's streaming checkpoints: one ``batch_<b0>.npz`` per
+trained batch of ensembles and a ``manifest.json`` of the committed
+batches. The files and the manifest's fingerprint are the JAX package's,
+so either package can resume the other's checkpoint of the same run. Every
+update is write-temp-then-``os.replace`` with an fsync, so a crash between
+writes always leaves a consistent (if slightly stale) manifest that a
+resume can trust.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import tempfile
 import threading
-from typing import Optional, Tuple
+from pathlib import Path
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+
+# ---------------------------------------------------------------------------
+# step-numbered trees (the LM trainer's checkpoints)
+# ---------------------------------------------------------------------------
+
+def flatten(tree: Any) -> Tuple[List[Any], str]:
+    """``(leaves, structure)`` in ``jax.tree_util.tree_flatten``'s order;
+    ``structure`` is written as ``str`` of the JAX package's treedef."""
+    leaves: List[Any] = []
+
+    def walk(node) -> str:
+        if node is None:
+            return "None"
+        if isinstance(node, dict):
+            return "{" + ", ".join(f"{k!r}: {walk(node[k])}"
+                                   for k in sorted(node)) + "}"
+        if isinstance(node, list):
+            return "[" + ", ".join(walk(v) for v in node) + "]"
+        if isinstance(node, tuple):
+            inner = ", ".join(walk(v) for v in node)
+            return f"({inner},)" if len(node) == 1 else f"({inner})"
+        leaves.append(node)
+        return "*"
+
+    return leaves, f"PyTreeDef({walk(tree)})"
+
+
+def unflatten(tree_like: Any, leaves: List[Any]) -> Any:
+    """``tree_like``'s structure with ``leaves`` in flatten order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(tree_like)
+
+
+def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(directory: str, step: int, tree: Any) -> str:
+    """Write ``tree`` as ``<directory>/step_<step>``: into a temporary
+    directory first, the commit marker last, then one rename."""
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    final = d / f"step_{step}"
+    tmp = Path(tempfile.mkdtemp(dir=d, prefix=f".tmp_step_{step}_"))
+    leaves, structure = flatten(tree)
+    arrays = {f"leaf_{i}": _numpy(leaf) for i, leaf in enumerate(leaves)}
+    np.savez(tmp / "arrays.npz", **arrays)
+    meta = {"step": step, "treedef": structure,
+            "leaves": [{"shape": list(a.shape), "dtype": str(a.dtype)}
+                       for a in arrays.values()]}
+    (tmp / "treedef.json").write_text(json.dumps(meta))
+    (tmp / "COMMITTED").write_text("ok")
+    if final.exists():
+        shutil.rmtree(final)
+    os.replace(tmp, final)       # atomic on the same filesystem
+    return str(final)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The largest committed step under ``directory`` (``None``: none)."""
+    d = Path(directory)
+    if not d.exists():
+        return None
+    steps = []
+    for sub in d.iterdir():
+        if sub.name.startswith("step_") and (sub / "COMMITTED").exists():
+            try:
+                steps.append(int(sub.name.split("_")[1]))
+            except ValueError:
+                continue
+    return max(steps) if steps else None
+
+
+def restore(directory: str, tree_like: Any, step: Optional[int] = None
+            ) -> Tuple[Any, int]:
+    """``(tree, step)``: the checkpoint (the latest committed one by
+    default) in ``tree_like``'s structure, numpy leaves, each checked
+    against the shape of ``tree_like``'s leaf."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {directory}")
+    d = Path(directory) / f"step_{step}"
+    meta = json.loads((d / "treedef.json").read_text())
+    protos, _ = flatten(tree_like)
+    if len(protos) != len(meta["leaves"]):
+        raise ValueError(f"checkpoint structure mismatch: {len(protos)} "
+                         f"leaves expected, {d} has {len(meta['leaves'])}")
+    out = []
+    with np.load(d / "arrays.npz") as data:
+        for i, proto in enumerate(protos):
+            arr = data[f"leaf_{i}"]
+            want = tuple(proto.shape) if hasattr(proto, "shape") else ()
+            if tuple(arr.shape) != want:
+                raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != "
+                                 f"expected {want}")
+            out.append(arr)
+    return unflatten(tree_like, out), step
+
+
+# ---------------------------------------------------------------------------
+# batch-grid manifest (the forest trainer's streaming checkpoints)
+# ---------------------------------------------------------------------------
 
 def describe_fingerprint_mismatch(stale, new, *, stale_name: str = "on-disk",
                                   new_name: str = "requested") -> str:
@@ -34,10 +166,6 @@ def describe_fingerprint_mismatch(stale, new, *, stale_name: str = "on-disk",
             + f"\n{stale_name} fingerprint: {json.dumps(stale, sort_keys=True)}"
             + f"\n{new_name} fingerprint: {json.dumps(new, sort_keys=True)}")
 
-
-# ---------------------------------------------------------------------------
-# batch-grid manifest (the forest trainer's streaming checkpoints)
-# ---------------------------------------------------------------------------
 
 def _fsync_replace(tmp: str, final: str) -> None:
     """``os.replace`` with the data already on disk: fsync the temp file,

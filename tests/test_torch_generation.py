@@ -33,6 +33,7 @@ from repro_torch.tabgen import samplers as tsamplers
 from repro_torch.tabgen import sampling as TS
 from repro_torch.tabgen.artifacts import rescale, unscale
 from repro_torch.tabgen.imputation import clamped_solve
+from repro_torch.tabgen.imputation import impute as port_impute
 
 _FIELDS = ("feat", "thr_val", "leaf", "best_round", "rounds_run", "val_curve",
            "mins", "maxs", "classes", "counts")
@@ -368,6 +369,25 @@ def test_impute_keeps_observed_cells(flow_so, moons):
     np.testing.assert_array_equal(filled[observed], Xm[observed])
     assert np.isfinite(filled).all()
     np.testing.assert_array_equal(filled, gen.impute(Xm, y[:30], seed=1))
+
+
+@pytest.mark.parametrize("rows,labels,match", [
+    (slice(None, 1), "y", r"rows of shape \(6, 1\)"),
+    (slice(None), None, "labels required for conditional models"),
+    (slice(None), "bad", r"labels \[7\] are not among the model's classes"),
+    (slice(None), "short", r"labels of shape \(5,\) for 6 rows"),
+])
+def test_impute_refuses_rows_and_labels_that_do_not_fit(flow_so, moons, rows,
+                                                        labels, match):
+    """A request that does not fit the model is refused with a ValueError
+    before any solve (a serving mesh checks it so before publishing)."""
+    X, y = moons
+    Xm = X[:6].copy()
+    Xm[::2, 0] = np.nan
+    lab = {"y": y[:6], None: None, "bad": np.array([0, 1, 7, 0, 1, 0]),
+           "short": y[:5]}[labels]
+    with pytest.raises(ValueError, match=match):
+        port_impute(to_port(flow_so), Xm[:, rows], lab, seed=1)
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,9 @@ import torch
 import torch.distributed as dist
 
 from repro.config import ForestConfig as JConfig
+from repro.tabgen import ForestArtifacts as JArtifacts
 from repro.tabgen import artifacts as jart
+from repro.tabgen import impute as j_impute
 from repro_torch.config import ForestConfig
 from repro_torch.core import interpolants as titp
 from repro_torch.launch.mesh import forest_mesh
@@ -90,6 +92,45 @@ def numpy_model(name):
 
 def port_model(name):
     return artifacts_from_numpy(*numpy_model(name), "cpu")
+
+
+N_IMP, IMPUTE_SEED, IMPUTE_ROUNDS = 37, 2, 2
+# name -> (mesh, model): two classes split over two model ranks (flow and
+# diffusion), and three classes replicated with rows split over two data
+# ranks
+IMPUTE_CASES = {"flow2_1x2": ((1, 2), "flow2"), "diff2_1x2": ((1, 2), "diff2"),
+                "flow3_2x1": ((2, 1), "flow3")}
+
+
+def impute_inputs(model):
+    """Rows of a model's p features with about a third of the cells
+    missing (every row keeps one), and labels from its classes."""
+    n_y = MODELS[model][1]
+    rng = np.random.default_rng(n_y)
+    X = rng.uniform(0, 2, (N_IMP, P)).astype(np.float32)
+    X[rng.random(X.shape) < 0.35] = np.nan
+    X[np.isnan(X).all(axis=1), 0] = 1.0
+    y = (rng.integers(0, n_y, N_IMP) * 10).astype(np.int64)
+    return X, y
+
+
+def jax_impute_noise(y, n_y, seed, rounds):
+    """Per class ``[1 + rounds, n_c, p]``: the noise of the JAX package's
+    impute (``key = PRNGKey(seed + 31)``; per class with rows ``split`` ->
+    eps_fix, then per round ``split`` -> eps_r)."""
+    key = jax.random.PRNGKey(seed + 31)
+    draws = {}
+    for yi in range(n_y):
+        n_c = int((y == yi * 10).sum())
+        if n_c == 0:
+            continue
+        steps = []
+        for _ in range(1 + max(1, rounds)):
+            key, sub = jax.random.split(key)
+            steps.append(np.asarray(jax.random.normal(sub, (n_c, P),
+                                                      jnp.float32)))
+        draws[f"noise{yi}"] = np.stack(steps)
+    return draws
 
 
 def sample_cases():
@@ -194,8 +235,16 @@ def two_rank_runs(tmp_path_factory):
         n_y = MODELS[model][1]
         x1, noise = jax_solve_inputs(SOLVE_SEED, n_y, m, P, N_T - 1)
         np.savez(work / f"jax_inputs_{model}.npz", x1=x1, noise=noise)
+    for model in {m for _, m in IMPUTE_CASES.values()}:
+        X, y = impute_inputs(model)
+        np.savez(work / f"impute_{model}.npz", X=X, y=y,
+                 **jax_impute_noise(y, MODELS[model][1], IMPUTE_SEED,
+                                    IMPUTE_ROUNDS))
     cases = {
         "models": list(MODELS), "meshes": [[2, 1], [1, 2]],
+        "impute": [dict(name=n, mesh=list(mesh), model=model,
+                        seed=IMPUTE_SEED, rounds=IMPUTE_ROUNDS)
+                   for n, (mesh, model) in IMPUTE_CASES.items()],
         "sample": [dict(name=n, mesh=list(mesh), model=model, sampler=s,
                         n=N, seed=SEED)
                    for n, mesh, model, s in sample_cases()],
@@ -359,23 +408,34 @@ def test_one_rank_mesh_registry_serves_swaps_and_closes(one_rank_mesh):
         reg.handle("m").generate(5)
 
 
-def test_impute_on_a_mesh_that_splits_the_classes_is_refused():
-    from repro_torch.serving.registry import ModelHandle
-    two, three = port_model("flow2"), port_model("flow3")
-    X = np.zeros((2, P), np.float32)
-    with pytest.raises(ValueError, match="splits its 2 classes"):
-        ModelHandle("m", two, device="cpu",
-                    mesh=FakeMesh((1, 2))).impute(X, np.array([0, 10]))
-    # three classes on two model ranks are replicated: every rank whole
-    filled = ModelHandle("m", three, device="cpu",
-                         mesh=FakeMesh((1, 2))).impute(X, np.array([0, 10]))
-    assert filled.shape == X.shape
+@pytest.mark.parametrize("model", ["flow2", "diff2", "flow3"])
+def test_one_rank_mesh_impute_equals_unsharded(one_rank_mesh, model):
+    """impute(mesh=) on one rank, from the whole model and from its slice,
+    and through a mesh registry, equals the unsharded impute bit for
+    bit."""
+    art = port_model(model)
+    X, y = impute_inputs(model)
+    ref = impute(art, X, y, seed=2, refine_rounds=2)
+    for a in (art, art.shard(one_rank_mesh)):
+        np.testing.assert_array_equal(
+            impute(a, X, y, seed=2, refine_rounds=2, mesh=one_rank_mesh),
+            ref)
+    reg = ModelRegistry(device="cpu", mesh=one_rank_mesh)
+    reg.register("m", art)
+    np.testing.assert_array_equal(
+        reg.handle("m").impute(X, y, seed=2, refine_rounds=2), ref)
+    np.testing.assert_array_equal(reg.impute("m", X, y, seed=2,
+                                             refine_rounds=2), ref)
+    reg.close()
 
 
 def test_mesh_of_another_device_type_is_refused(one_rank_mesh):
     art = port_model("flow2")
     with pytest.raises(ValueError, match="cpu mesh cannot sample"):
         sample(art.to("meta"), 8, mesh=one_rank_mesh)
+    with pytest.raises(ValueError, match="cpu mesh cannot impute"):
+        impute(art.to("meta"), np.zeros((2, P), np.float32),
+               np.array([0, 10]), mesh=one_rank_mesh)
     with pytest.raises(ValueError, match="cpu mesh cannot serve"):
         ModelRegistry(device="meta", mesh=one_rank_mesh)
     with pytest.raises(ValueError, match="expected a DeviceMesh"):
@@ -444,8 +504,8 @@ def test_two_rank_server_answers_equal_an_unsharded_replay(two_rank_runs):
 def test_two_rank_failure_after_publish_breaks_the_stream(two_rank_runs):
     """A failure planted in rank 0's enqueue of a batch, after its
     publication: that request gets the failure, no later batch returns
-    rows, and rank 1, waiting in the batch's gather, fails as soon as rank
-    0 leaves instead of waiting out the group's timeout."""
+    rows, and rank 1 fails at the batch's failure check, before its
+    gather, instead of waiting out the group's timeout."""
     fault0 = json.loads((two_rank_runs / "fault0.json").read_text())
     fault1 = json.loads((two_rank_runs / "fault1.json").read_text())
     first, failed, later = fault0["got"]
@@ -456,6 +516,86 @@ def test_two_rank_failure_after_publish_breaks_the_stream(two_rank_runs):
     assert fault0["calls"] == ["on_break"]      # serve_http's exit hook
     assert "raised" in fault1, fault1
     assert fault1["after_s"] < 30     # the group timeout is 30 minutes
+
+
+@pytest.mark.parametrize("name", list(IMPUTE_CASES))
+def test_two_rank_impute_equals_unsharded_and_matches_jax(two_rank_runs,
+                                                         name):
+    """impute(mesh=) on two ranks (two classes split over the model ranks,
+    or rows split over the data ranks), from the whole model and from each
+    rank's slice: on every rank bit-equal to the unsharded impute. With the
+    JAX package's noise handed over, equal to the unsharded port impute on
+    that noise and within the impute tolerance of repro's impute."""
+    _, model = IMPUTE_CASES[name]
+    art = port_model(model)
+    with np.load(two_rank_runs / f"impute_{model}.npz") as d:
+        inputs = dict(d)
+    X, y = inputs["X"], inputs["y"]
+    kw = dict(seed=IMPUTE_SEED, refine_rounds=IMPUTE_ROUNDS)
+    ref = impute(art, X, y, **kw)
+    with_jax_noise = impute(art, X, y, noise=lambda yi, shape: torch.from_numpy(
+        inputs[f"noise{yi}"]), **kw)
+    jax_ref = j_impute(JArtifacts.load(str(two_rank_runs / model)), X, y,
+                       **kw)
+    np.testing.assert_allclose(with_jax_noise, jax_ref, rtol=1e-4, atol=1e-4)
+    assert np.isnan(X).any() and not np.isnan(ref).any()
+    for rank in (0, 1):
+        with np.load(two_rank_runs / f"rank{rank}_impute_{name}.npz") as d:
+            np.testing.assert_array_equal(d["X"], ref)
+            np.testing.assert_array_equal(d["Xs"], ref)
+            np.testing.assert_array_equal(d["Xj"], with_jax_noise)
+
+
+def test_two_rank_mesh_server_impute_equals_an_unsharded_replay(
+        two_rank_runs):
+    """A ForestServer on a mesh that splits the classes: bad impute requests
+    are refused on rank 0 before any other rank hears of them (HTTP 400 /
+    ValueError, the stream unbroken, rank 1 replays nothing of them); the
+    imputes after them (a command each, replayed by rank 1) equal the
+    unsharded registry's, and a request after them equals its batch's
+    unsharded replay."""
+    done = [json.loads((two_rank_runs / f"done_impute{r}.json").read_text())
+            for r in (0, 1)]
+    assert done[1] == {"replayed": 1}
+    assert done[0]["ok"] and done[0]["broken"] == "None"
+    (s_label, e_label), (s_width, e_width), (s_none, e_none), raised = \
+        done[0]["refused"]
+    assert (s_label, s_width, s_none) == (400, 400, 400)
+    assert "labels [7] are not among the model's classes" in e_label["error"]
+    assert f"the model imputes [n, {P}]" in e_width["error"]
+    assert "imputation needs" in e_none["error"]
+    assert raised == "ValueError: labels required for conditional models"
+    plain = ModelRegistry(device="cpu", buckets=(16, 64))
+    plain.register("m", port_model("flow2"))
+    X, y = impute_inputs("flow2")
+    with np.load(two_rank_runs / "served_impute.npz") as d:
+        for seed in (2, 3):
+            np.testing.assert_array_equal(
+                d[f"I{seed}"], plain.acquire("m").impute(X, y, seed=seed))
+        ref = plain.acquire("m").generate(
+            40, seed=BATCH_SEED_BASE + int(d["batch_ids"][0]))
+        assert_same_rows((d["X40"], d["y40"]), ref)
+
+
+@pytest.mark.parametrize("where", ["batch", "impute"])
+def test_two_rank_follower_failure_stops_the_mesh(two_rank_runs, where):
+    """A failure planted in rank 1's replay of a batch (or of an impute),
+    after its publication: rank 0 raises at the command's failure check
+    within seconds (not in a gather that will not pair), returns no rows
+    for it, and every later command raises StreamBroken; rank 1's follow
+    raises the planted failure."""
+    got0 = json.loads((two_rank_runs / f"ffault_{where}0.json").read_text())
+    got1 = json.loads((two_rank_runs / f"ffault_{where}1.json").read_text())
+    assert got1["raised"] == f"MemoryError: planted in the follower's {where}"
+    assert got1["after_s"] < 30
+    first = 2 if where == "batch" else 1   # the call whose replay failed
+    assert got0["got"][:first] == [17, N_IMP][:first]
+    failed, *later = got0["got"][first:]
+    assert failed.startswith("StreamBroken: 1 rank(s) failed"), failed
+    assert got0["seconds"][first] < 30
+    assert later and all(g.startswith("StreamBroken: the command stream "
+                                      "broke") for g in later), later
+    assert "1 rank(s) failed" in got0["broken"]
 
 
 def test_jax_config_fields_match_for_the_saved_models():

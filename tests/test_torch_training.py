@@ -257,6 +257,60 @@ def test_cuda_best_splits_equal_the_cpu(out):
         assert torch.equal(a.cpu(), b)
 
 
+def _host_noise(eid, split, shape, shard=0):
+    """Bridge noise drawn on the host, so fits on two devices see the same
+    numbers."""
+    gen = torch.Generator().manual_seed(1000 * eid + 10 * shard + split)
+    return torch.randn(shape, generator=gen), None
+
+
+def test_wmse_adds_in_one_fixed_order():
+    """The validation loss is ordered_sum's float64 sums rounded once: a
+    lane's loss does not depend on its batch-mates, and it is within an
+    ulp of numpy's float64 sum."""
+    from repro_torch.forest.boosting import _wmse
+    rng = np.random.default_rng(0)
+    pred = rng.normal(size=(3, 1000, 5)).astype(np.float32)
+    tgt = rng.normal(size=(3, 1000, 5)).astype(np.float32)
+    w = rng.uniform(0, 2, 1000).astype(np.float32)
+    got = _wmse(t(pred), t(tgt), t(w))
+    sq = (t(w)[None, :, None] * torch.square(t(pred) - t(tgt))).double()
+    want = (ordered_sum(sq.flatten(1)).float()
+            / (ordered_sum(t(w).double()).float() * 5))
+    assert torch.equal(got, want)
+    for s in range(3):
+        assert torch.equal(_wmse(t(pred[s:s + 1]), t(tgt[s:s + 1]), t(w)),
+                           got[s:s + 1])
+    num = (w[None, :, None].astype(np.float64)
+           * (pred - tgt).astype(np.float64) ** 2).sum(axis=(1, 2))
+    np.testing.assert_allclose(got.numpy(), num / (w.astype(np.float64).sum()
+                                                   * 5), rtol=2e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mo", [False, True])
+def test_cuda_early_stopped_fit_equals_the_cpu(mo):
+    """With early stopping on, a fit on the card stops every lane at the
+    round the CPU fit stops it (the validation loss adds in one order on
+    both), and grows the same trees, from the same noise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; python3 chip_smoke.py holds card "
+                    "fits against the CPU")
+    X, y = two_moons(240, seed=0)
+    X, y = np.asarray(X, np.float32), np.asarray(y)
+    cfg = TForestConfig(n_t=5, duplicate_k=6, n_trees=20, max_depth=3,
+                        n_bins=16, reg_lambda=1.0, multi_output=mo,
+                        early_stop_rounds=2)
+    card = fit_artifacts(X, y, cfg, device="cuda", noise=_host_noise)
+    cpu = fit_artifacts(X, y, cfg, device="cpu", noise=_host_noise)
+    assert (cpu.rounds_run < cfg.n_trees).any()      # some lanes stopped
+    for f in ("feat", "best_round", "rounds_run"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    for f in ("thr_val", "leaf"):
+        torch.testing.assert_close(getattr(card, f).cpu(), getattr(cpu, f),
+                                   rtol=0, atol=1e-4)
+
+
 def test_best_splits_breaks_ties_to_the_first_index():
     sum_g = np.zeros((1, 2, 4, 1), np.float32)
     sum_g[0, :, 0, 0], sum_g[0, :, 3, 0] = 1.0, -1.0   # same gain everywhere
@@ -621,6 +675,30 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, small_data, monkeypatch):
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(tart, f).numpy(),
                                       np.asarray(getattr(jart, f)))
+
+
+def test_trees_at_best_iteration_matches_jax(tmp_path):
+    """Paper Fig. 3's trees per timestep, from a two-moons model the JAX
+    package fitted with early stopping and saved: the port's artifacts (and
+    the deprecated shim, which delegates to them) give the JAX numbers."""
+    from repro.core.forest_flow import ForestGenerativeModel as JShim
+    from repro_torch.core.forest_flow import ForestGenerativeModel
+    X, y = two_moons(240, seed=0)
+    cfg = dict(dataclasses.asdict(SMALL), n_trees=12, early_stop_rounds=2)
+    jart = j_fit_artifacts(np.asarray(X), np.asarray(y), ForestConfig(**cfg),
+                           seed=0)
+    assert (np.asarray(jart.rounds_run) < 12).any()
+    path = jart.save(str(tmp_path / "moons"))
+    tart = ForestArtifacts.load(path, device="cpu")
+    want = jart.trees_at_best_iteration()
+    assert want.shape == (SMALL.n_t,)
+    np.testing.assert_array_equal(tart.trees_at_best_iteration(), want)
+    shim = ForestGenerativeModel(TForestConfig(**cfg))
+    shim.artifacts = tart
+    jshim = JShim(ForestConfig(**cfg))
+    jshim.artifacts = jart
+    np.testing.assert_array_equal(shim.trees_at_best_iteration(),
+                                  jshim.trees_at_best_iteration())
 
 
 def test_fit_routes_meshes_and_stores(small_data, tmp_path):
