@@ -33,12 +33,14 @@
    1e-3 plus rtol 1e-2, about an ulp),
    at the serving shape (B=8, Hq=9, Hkv=3, S=2,048, d=64, causal), ragged
    lengths (Sq and Skv not multiples of the bf16 kernel's 128-row tiles),
-   one KV head per query head, non-causal with Skv > Sq and every other
-   head size; two launches must give the same bits. Checks that the bf16
+   one KV head per query head, non-causal with Skv > Sq, every other
+   head size and the MoE prefills' shapes (dbrx-132b: B=4, Hq=48, Hkv=8,
+   S=1,024, d=128; deepseek-v2-236b's MLA: B=2, Hq=Hkv=128, S=1,024,
+   d=192; d=192 at S=300); two launches must give the same bits. Checks that the bf16
    instances run on the tensor cores and load by TMA (``HGMMA`` and
    ``UTMALDG`` in each one's SASS) and logs their registers. Times kernel,
    plain version and ``scaled_dot_product_attention`` at the serving shape
-   in fp32 and bf16.
+   and the two MoE prefills' shapes in fp32 and bf16.
 6. Drives the port's generation path through ``TabularGenerator`` at the
    full width of the CaloForest photons model (method=flow, MO trees,
    n_t=100, n_trees=20, max_depth=7, p=368, n_y=15; random weights from a
@@ -106,6 +108,24 @@
    of device time. Then bf16, the prefill entry point's default: 30
    launches per prefill and none in two decode steps; one prefill timed
    (seconds, tokens/s) and one profiled for the kernel's share.
+10a. Serves the MoE families at their published widths, the depth cut to
+   2 layers each: dbrx-132b (d_model 6,144, 48/8 heads, 16 experts top-4,
+   d_ff 10,752, vocab 100,352; 2 of 40 layers, 7.75 B parameters) with 4
+   prompts of 1,024 tokens and deepseek-v2-236b (d_model 5,120, 128 heads,
+   MLA q_lora 1,536 / kv_lora 512 / rope 64 / nope 128, 160 routed experts
+   top-6 + 2 shared, d_ff_dense 12,288, vocab 102,400; its dense first
+   layer and one of 59 MoE layers) with 2, through ``serve_batch``: 32
+   greedy tokens at fp32 and at bf16, one flash-attention launch a prefill
+   layer (d = 128 GQA 6:1 and MLA's d = 192) and none in decode; prefill
+   seconds, decode ms a step, tokens/s, device peak; a profiled prefill
+   each (the experts' products, dispatch + combine, the kernel's share).
+   deepseek also decodes 8 tokens with the absorbed MLA (equal to the
+   expanded decode's) and 4 steps with int8 experts (their bytes against
+   bf16, ms a step). Then each family at reduced() (B = 2, S = 600: 1,200
+   tokens, two groups and a tail of 176) on the card against the CPU:
+   prefill logits within 1e-4, 8 greedy tokens equal, a training step's
+   loss within 1e-5 relative, aux within 1e-5, every gradient within 1e-4
+   of its leaf's largest entry.
 10b. Trains smollm-135m at its published width and depth (seeded weights)
    through ``repro_torch.train.loop.train`` on ``FastTokenStream``
    batches of 8 x 2,048 tokens, remat "full", fp32 masters, AdamW: 4 steps
@@ -2869,10 +2889,365 @@ def check_serving_small(device):
     log("8 greedy tokens on the card equal the plain path's on the cpu")
 
 
+# ---------------------------------------------------------------------------
+# the MoE families' serving path
+# ---------------------------------------------------------------------------
+
+# dbrx-132b and deepseek-v2-236b at their published widths, cut to 2 layers
+# (one dbrx layer is 3.26 B parameters, 13 GB at fp32: the published 132 B
+# does not fit one card; deepseek's 2 are its dense first layer and one
+# mla_moe layer): (B, prompt tokens) each, 32 greedy tokens
+MOE_SERVE = {"dbrx-132b": (4, 1024), "deepseek-v2-236b": (2, 1024)}
+MOE_LAYERS, MOE_NEW, MOE_ABSORB_STEPS, MOE_INT8_STEPS = 2, 32, 8, 4
+MOE_SMALL = (2, 600)    # card vs CPU at reduced(): 1,200 tokens, a tail of 176
+# one apply_moe at deepseek-v2's published MoE width against a plain
+# token-by-token version on the CPU: (B, S), two groups of 512, a tail of 76
+MOE_DISPATCH = (2, 550)
+MOE_MARGIN = 1e-5       # a top-k boundary closer than this may route apart
+# the shapes of the two prefills' attention (B, Hq, Hkv, Sq, Skv, d)
+FA_DBRX = (4, 48, 8, 1024, 1024, 128)
+FA_DEEPSEEK = (2, 128, 128, 1024, 1024, 192)
+
+
+def moe_config(arch):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), n_layers=MOE_LAYERS)
+
+
+def prefill_breakdown(params, cfg, prompts, device, dtype):
+    """Profile one prefill in ``dtype``: the device's busy time, and the
+    parts of it in the flash-attention kernel, in the MoE's expert
+    products (its ``moe.experts`` span), and in its routing, dispatch and
+    combine (``moe.route`` + ``moe.combine``); seconds."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    spans = ("moe.route", "moe.experts", "moe.combine")
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, _ = lm.prefill_step(params, {"tokens": prompts}, cfg,
+                                    dtype=dtype)
+        sync(device)
+    events = prof.events()
+    # the device's kernels; a span's own device-side marker is no kernel
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in spans]
+    part = {name: sum(e.device_time_total for e in events
+                      if e.name == name
+                      and e.device_type == torch.autograd.DeviceType.CPU)
+            / 1e6 for name in spans}
+    busy = sum(e.device_time_total for e in kernels) / 1e6
+    fa = sum(e.device_time_total for e in kernels
+             if "fa_kernel" in e.name or "fa_wgmma_kernel" in e.name) / 1e6
+    out = {"device_busy_s": busy, "flash_attention_s": fa,
+           "experts_s": part["moe.experts"],
+           "dispatch_combine_s": part["moe.route"] + part["moe.combine"]}
+    out["rest_s"] = busy - fa - out["experts_s"] - out["dispatch_combine_s"]
+    out["prefill_kernel_share"] = fa / busy if busy > 0 else float("nan")
+    return logits, out
+
+
+def timed_decode(params, cfg, cache, tok, pos, steps, dtype, device):
+    """``steps`` decode steps from ``pos``; host seconds a step (the
+    device synchronised at both ends) and the last logits."""
+    from repro_torch.models import lm
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = lm.decode_step(params, cache, tok, pos + i, cfg,
+                                       dtype=dtype)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    sync(device)
+    return (time.perf_counter() - t0) / steps, logits
+
+
+def blocks_of(cfg):
+    from repro_torch.models import blocks
+    return " + ".join(f"{n} x {'/'.join(kinds)}"
+                      for kinds, n in blocks.segments_for(cfg))
+
+
+def expert_bytes(params):
+    return sum(t.numel() * t.element_size()
+               for name, t in params.named_parameters()
+               if ".moe.w" in name)
+
+
+def serve_moe(arch, device):
+    """Serve one MoE family (``moe_config``): a warm-up, then
+    ``serve_batch`` at fp32 and at bf16 (tokens in range, one
+    flash-attention launch a prefill layer and none in decode), each with a
+    profiled prefill; deepseek-v2 also decodes MOE_ABSORB_STEPS tokens with
+    the absorbed MLA (equal to the expanded fp32 decode's) and
+    MOE_INT8_STEPS steps with int8 experts. Returns (kernel launches of the
+    serve_batch runs, numbers)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.serve import merge_caches, serve_batch
+    from repro_torch.models import lm
+    cfg = moe_config(arch)
+    b, s = MOE_SERVE[arch]
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, device=device, seed=0)
+    sync(device)
+    n_params = sum(p.numel() for p in params.parameters())
+    out = {"layers": cfg.n_layers, "batch": b, "prompt": s, "new": MOE_NEW,
+           "parameters": n_params, "init_s": time.perf_counter() - t0}
+    log(f"{arch}: {cfg.n_layers} layers ({blocks_of(cfg)}), d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts top-{cfg.top_k}, vocab "
+        f"{cfg.vocab}: {n_params} parameters ({n_params * 4 / 1e9:.2f} GB "
+        f"fp32) seeded on {device.type} in {out['init_s']:.2f} s")
+    g = torch.Generator(device=device)
+    g.manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=g, device=device)
+    cache_size = s + MOE_NEW
+    expect = cfg.n_layers
+    serve_batch(cfg, params, prompts[:1, :64], 2, cache_size=65)   # warm-up
+    launches = 0
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.cuda.reset_peak_memory_stats(device)
+        flash_attention.launches = 0
+        gen, stats = serve_batch(cfg, params, prompts, MOE_NEW, cache_size,
+                                 dtype=dtype)
+        n = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated(device)
+        if (gen.shape != (b, MOE_NEW) or gen.min() < 0
+                or gen.max() >= cfg.vocab or n != expect):
+            raise AssertionError(f"{arch} serve_batch {name}: tokens "
+                                 f"{gen.shape}, {n} flash_attention "
+                                 f"launches (expected {expect})")
+        launches += n
+        flash_attention.launches = 0
+        logits, parts = prefill_breakdown(params, cfg, prompts, device, dtype)
+        if (flash_attention.launches != expect
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} prefill {name}: wrong launch "
+                                 f"count or non-finite logits")
+        decode_ms = stats["decode_s"] / (MOE_NEW - 1) * 1e3
+        out[name] = dict(prefill_s=stats["prefill_s"],
+                         prefill_tok_per_s=b * s / stats["prefill_s"],
+                         decode_ms_per_step=decode_ms,
+                         decode_tok_per_s=stats["tok_per_s"],
+                         peak_bytes=peak, flash_attention_launches=n, **parts)
+        log(f"{arch} serve_batch B={b} prompt={s} new={MOE_NEW} {name}: "
+            f"prefill {stats['prefill_s']!r} s ({b * s / stats['prefill_s']!r}"
+            f" tok/s), decode {decode_ms!r} ms a step ({stats['tok_per_s']!r}"
+            f" tok/s), device peak {peak} bytes, {n} flash_attention "
+            f"launches; profiled prefill: busy {parts['device_busy_s']!r} s, "
+            f"experts {parts['experts_s']!r}, dispatch/combine "
+            f"{parts['dispatch_combine_s']!r}, flash_attention "
+            f"{parts['flash_attention_s']!r} "
+            f"(prefill_kernel_share {parts['prefill_kernel_share']!r}), rest "
+            f"{parts['rest_s']!r}")
+        if name == "fp32":
+            fp32_tokens = gen
+        del logits
+    if cfg.family == "mla_moe":
+        absorbed = copy.copy(cfg)
+        object.__setattr__(absorbed, "mla_absorb", True)
+        gen, _ = serve_batch(absorbed, params, prompts, MOE_ABSORB_STEPS,
+                             s + MOE_ABSORB_STEPS)
+        if not np.array_equal(gen, fp32_tokens[:, :MOE_ABSORB_STEPS]):
+            raise AssertionError(f"absorbed MLA decode: tokens {gen}, the "
+                                 f"expanded decode's "
+                                 f"{fp32_tokens[:, :MOE_ABSORB_STEPS]}")
+        log(f"{arch}: {MOE_ABSORB_STEPS} greedy tokens with the absorbed MLA "
+            f"decode (fp32) equal the expanded decode's")
+        # bf16 decode steps with the experts as they are, then int8
+        logits, pc = lm.prefill_step(params, {"tokens": prompts}, cfg)
+        cache = merge_caches(lm.init_cache(cfg, b, cache_size, torch.bfloat16,
+                                           device), pc)
+        del pc
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        bf16_bytes = expert_bytes(params) // 2
+        bf16_s, _ = timed_decode(params, cfg, cache, tok, s, MOE_INT8_STEPS,
+                                 torch.bfloat16, device)
+        lm.quantize_experts(params)
+        int8_bytes = expert_bytes(params)
+        int8_s, logits = timed_decode(params, cfg, cache, tok, s,
+                                      MOE_INT8_STEPS, torch.bfloat16, device)
+        if not torch.isfinite(logits).all():
+            raise AssertionError("int8 experts: non-finite logits")
+        out["int8"] = {"expert_bytes": int8_bytes,
+                       "bf16_expert_bytes": bf16_bytes,
+                       "decode_ms_per_step": int8_s * 1e3,
+                       "bf16_decode_ms_per_step": bf16_s * 1e3}
+        log(f"{arch}: int8 experts {int8_bytes} bytes (scales included) "
+            f"against {bf16_bytes} at bf16 ({int8_bytes / bf16_bytes!r}); "
+            f"bf16 decode {int8_s * 1e3!r} ms a step with int8 experts, "
+            f"{bf16_s * 1e3!r} with fp32 experts cast to bf16 "
+            f"({MOE_INT8_STEPS} steps each)")
+        del cache, logits
+    del params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def check_moe_small(device):
+    """Each MoE family at reduced(), B, S = MOE_SMALL (1,200 tokens: two
+    groups of 512 and a tail of 176), the same weights on the card and on
+    the CPU, fp32, TF32 off: prefill logits within SMALL_TOL (rtol = atol)
+    and 8 greedy tokens equal; one training step's loss within LOSS_RTOL
+    relative, aux within 1e-5 and every gradient within GRAD_RTOL of its
+    leaf's largest entry on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    cpu = torch.device("cpu")
+    b, s = MOE_SMALL
+    out = {}
+    for arch in MOE_SERVE:
+        cfg = get_arch(arch, reduced=True)
+        on_cpu = lm.init_params(cfg, device=cpu, seed=3)
+        on_card = copy.deepcopy(on_cpu).to(device)
+        rng = np.random.default_rng(3)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+        logits = [lm.prefill_step(p, {"tokens": prompts.to(d)}, cfg,
+                                  dtype=torch.float32)[0].cpu()
+                  for p, d in ((on_card, device), (on_cpu, cpu))]
+        err = (logits[0] - logits[1]).abs().max().item()
+        ok = torch.allclose(*logits, rtol=SMALL_TOL, atol=SMALL_TOL)
+        toks = [serve_batch(cfg, p, prompts, 8, cache_size=s + 8)[0]
+                for p in (on_card, on_cpu)]
+        seqs = rng.integers(0, cfg.vocab, (b, s + 1))
+        batch = {"tokens": torch.from_numpy(seqs[:, :-1]),
+                 "labels": torch.from_numpy(seqs[:, 1:])}
+        got = {}
+        for name, model in (("card", on_card), ("cpu", on_cpu)):
+            dev = model.embed.tokens.device
+            params = list(model.parameters())
+            loss, m = lm.loss_fn(model, {k: v.to(dev)
+                                         for k, v in batch.items()}, cfg,
+                                 dtype=torch.float32)
+            grads = torch.autograd.grad(loss, params)
+            got[name] = (loss.item(), m["aux"].item(),
+                         [g.cpu() for g in grads])
+        (l_card, a_card, g_card), (l_cpu, a_cpu, g_cpu) = (got["card"],
+                                                          got["cpu"])
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        aux_err = abs(a_card - a_cpu)
+        grad_rel = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                       .item() for a, c in zip(g_card, g_cpu))
+        out[arch] = {"logits_err": err, "loss_rel": rel, "aux_err": aux_err,
+                     "grad_rel": grad_rel}
+        log(f"{arch} reduced() B={b} S={s} on {device.type} vs plain on cpu: "
+            f"prefill logits max abs diff {err!r} (within {SMALL_TOL}: {ok}), "
+            f"8 greedy tokens equal: {np.array_equal(*toks)}; training step "
+            f"loss {l_card!r} vs {l_cpu!r} (relative {rel!r}), aux {a_card!r}"
+            f" vs {a_cpu!r}, gradients worst leaf {grad_rel!r} of its largest"
+            f" entry")
+        if (not ok or not np.array_equal(*toks) or rel > LOSS_RTOL
+                or aux_err > 1e-5 or grad_rel > GRAD_RTOL):
+            raise AssertionError(f"{arch}: the card and the plain path "
+                                 f"disagree")
+    return out
+
+
+def plain_moe(x, router, wi, wg, wo, top_k, g_size):
+    """The swiglu MoE with no slot dropped, token by token: each token of a
+    whole group of ``g_size`` sums its top-k experts' outputs weighted by
+    its top-k probabilities renormalised; the tokens past the last whole
+    group pass through. ``wi`` / ``wg`` / ``wo`` are callables giving an
+    expert's weights on x's device. Returns (y, aux, each grouped token's
+    margin: its k-th less its (k+1)-th probability)."""
+    t, _ = x.shape
+    n = t // g_size * g_size
+    e_count = router.shape[1]
+    probs = torch.softmax((x[:n] @ router).float(), dim=-1)
+    top, idx = torch.topk(probs, top_k + 1, dim=-1)
+    gates = top[:, :top_k] / top[:, :top_k].sum(-1, keepdim=True)
+    y = x.clone()
+    y[:n] = 0
+    for e in range(e_count):
+        tok, slot = torch.nonzero(idx[:, :top_k] == e, as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = x[tok]
+        h = torch.nn.functional.silu(xe @ wg(e)) * (xe @ wi(e))
+        y.index_add_(0, tok, gates[tok, slot, None] * (h @ wo(e)))
+    top1 = torch.nn.functional.one_hot(idx[:, 0], e_count).float()
+    frac = (top1.reshape(-1, g_size, e_count).sum(1) / g_size).mean(0)
+    aux = (frac * probs.mean(0)).sum() * e_count
+    return y, aux, top[:, top_k - 1] - top[:, top_k]
+
+
+def check_moe_dispatch(device):
+    """One ``apply_moe`` at deepseek-v2's published MoE width (160 experts,
+    top-6, D = 5,120, d_ff 1,536) and prefill's no-drop capacity, fp32,
+    on B, S = MOE_DISPATCH tokens (two groups of 512 and a tail), held
+    against ``plain_moe`` on the CPU with the same weights: y within
+    SMALL_TOL (rtol = atol) at every token but those whose top-k boundary
+    is within MOE_MARGIN (the two devices may route them apart; counted),
+    aux within 1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.blocks import no_drop_capacity
+    from repro_torch.models.moe import apply_moe, init_moe
+    cfg = get_arch("deepseek-v2-236b")
+    b, s = MOE_DISPATCH
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    p = init_moe(g, cfg.d_model, cfg.d_ff_expert, cfg.n_experts, cfg.act,
+                 device=device)
+    x = torch.randn((b, s, cfg.d_model), generator=g, device=device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y, aux = apply_moe(p, x, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           act=cfg.act,
+                           capacity_factor=no_drop_capacity(cfg))
+    sync(device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, want_aux, margin = plain_moe(
+        x.reshape(b * s, -1).cpu(), p.router.detach().cpu(),
+        lambda e: p.wi[e].detach().cpu(), lambda e: p.wg[e].detach().cpu(),
+        lambda e: p.wo[e].detach().cpu(), cfg.top_k, 512)
+    plain_s = time.perf_counter() - t0
+    got = y.reshape(b * s, -1).cpu()
+    held = torch.ones(b * s, dtype=torch.bool)
+    held[:margin.shape[0]] = margin >= MOE_MARGIN
+    err = (got[held] - want[held]).abs().max().item()
+    ok = torch.allclose(got[held], want[held], rtol=SMALL_TOL,
+                        atol=SMALL_TOL)
+    aux_err = abs(aux.item() - want_aux.item())
+    log(f"apply_moe at deepseek-v2's published width (E={cfg.n_experts}, "
+        f"top-{cfg.top_k}, D={cfg.d_model}, d_ff {cfg.d_ff_expert}), "
+        f"{b * s} tokens, no-drop capacity, fp32: card {card_s!r} s vs a "
+        f"plain token-by-token version on the cpu ({plain_s!r} s): y max abs"
+        f" diff {err!r} over {int(held.sum())} tokens ({int((~held).sum())} "
+        f"with a top-k margin under {MOE_MARGIN} left out; within "
+        f"{SMALL_TOL}: {ok}), aux {aux.item()!r} vs {want_aux.item()!r}")
+    if not ok or aux_err > 1e-5 or (~held).sum() > 8:
+        raise AssertionError("apply_moe at published width disagrees with "
+                             "the plain version")
+    del p, x, y
+    torch.cuda.empty_cache()
+    return {"y_err": err, "aux_err": aux_err, "left_out": int((~held).sum()),
+            "card_s": card_s, "plain_s": plain_s}
+
+
+def drive_moe_serving(device):
+    """The MoE serving phase: both families at published width
+    (``serve_moe``), one ``apply_moe`` at deepseek-v2's published MoE width
+    against a plain version (``check_moe_dispatch``), then card against CPU
+    at reduced() (``check_moe_small``). Returns (flash_attention launches of the
+    serve_batch runs, numbers)."""
+    t0 = time.perf_counter()
+    launches, out = 0, {}
+    for arch in MOE_SERVE:
+        n, out[arch] = serve_moe(arch, device)
+        launches += n
+    out["dispatch_published"] = check_moe_dispatch(device)
+    out["card_vs_cpu"] = check_moe_small(device)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"MoE serving phase: {out['phase_s']!r} s")
+    return launches, out
+
+
 def flash_phase(device):
     """flash_attention against its plain version at every case, then timed
-    at the serving shape in fp32 and bf16. Returns (worst abs difference
-    per dtype, timings per dtype)."""
+    at smollm-135m's serving shape and the two MoE prefills' shapes in fp32
+    and bf16. Returns (worst abs difference per dtype, timings per dtype at
+    the serving shape, timings at the MoE shapes by model and dtype)."""
     cases = [("serving", FA_SERVE, True),
              ("ragged", (1, 9, 3, 1000, 1000, 64), True),
              ("Sq = Skv = 300", (2, 9, 3, 300, 300, 64), True),
@@ -2884,19 +3259,27 @@ def flash_phase(device):
     cases += [(f"d={d}", (1, 4, 2, 200, 200, d), True)
               for d in (16, 32, 128, 160, 256)]
     cases.append(("d=256 non-causal", (1, 4, 1, 70, 130, 256), False))
+    cases += [("dbrx-132b prefill (GQA 6:1)", FA_DBRX, True),
+              ("deepseek-v2-236b MLA prefill", FA_DEEPSEEK, True),
+              ("d=192 ragged", (2, 16, 16, 300, 300, 192), True)]
     worst = check_flash(device, cases)
-    timing = {}
-    for dtype in FA_TOL:
-        ft = time_flash(device, FA_SERVE, dtype)
-        timing[dtype] = ft
-        log(f"flash_attention at the serving shape {FA_SERVE} "
-            f"{str(dtype)[6:]}: kernel {ft['ms']!r} ms, plain "
-            f"{ft['plain_ms']!r} ms, scaled_dot_product_attention "
-            f"{ft['library_ms']!r} ms (kernel / that "
-            f"{ft['ms'] / ft['library_ms']!r}), bound {ft['bound_ms']!r} ms "
-            f"({ft['bound_by']}: {ft['ops']} operations, {ft['bytes']} "
-            f"bytes)")
-    return worst, timing
+    timing, moe_timing = {}, {}
+    for label, shape in (("serving", FA_SERVE), ("dbrx-132b", FA_DBRX),
+                         ("deepseek-v2-236b", FA_DEEPSEEK)):
+        for dtype in FA_TOL:
+            ft = time_flash(device, shape, dtype)
+            if label == "serving":
+                timing[dtype] = ft
+            else:
+                moe_timing.setdefault(label, {})[str(dtype)[6:]] = ft
+            log(f"flash_attention at the {label} shape {shape} "
+                f"{str(dtype)[6:]}: kernel {ft['ms']!r} ms, plain "
+                f"{ft['plain_ms']!r} ms, scaled_dot_product_attention "
+                f"{ft['library_ms']!r} ms (kernel / that "
+                f"{ft['ms'] / ft['library_ms']!r}), bound {ft['bound_ms']!r} "
+                f"ms ({ft['bound_by']}: {ft['ops']} operations, "
+                f"{ft['bytes']} bytes)")
+    return worst, timing, moe_timing
 
 
 def main() -> int:
@@ -2962,7 +3345,7 @@ def main() -> int:
         "histograms of all features without an [n*p, out] copy of g "
         "(87 GB at full width)")
 
-    fa_worst, fa_timing = flash_phase(device)
+    fa_worst, fa_timing, fa_moe_timing = flash_phase(device)
 
     # -- the generation path -----------------------------------------------
     cfg = ForestConfig(method="flow", n_t=N_T, duplicate_k=K_DUP,
@@ -3005,6 +3388,12 @@ def main() -> int:
     # -- the LM serving path -----------------------------------------------
     forest_predict.launches = histogram.launches = flash_attention.launches = 0
     fa_launches, serving = drive_serving(device)
+    torch.cuda.empty_cache()
+
+    # -- the MoE families' serving path ---------------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    moe_launches, moe_serving = drive_moe_serving(device)
+    fa_launches += moe_launches
     torch.cuda.empty_cache()
 
     # -- the LM training path -------------------------------------------------
@@ -3085,7 +3474,9 @@ def main() -> int:
                           source="src/repro_torch/kernels/flash_attention/"
                                  "csrc/flash_attention_bf16.cuh",
                           sass=sass),
+                      "flash_attention_moe_shapes": fa_moe_timing,
                       "serving": serving,
+                      "moe_serving": moe_serving,
                       "lm_training": lm_training,
                       "forest_serving": dict(
                           forest_serving, tree_predict_launches=fs_tp,

@@ -2,7 +2,7 @@
 
 * :class:`ArchConfig` — an LM-family transformer architecture, a
   field-for-field copy of ``repro.config.ArchConfig`` (the port serves the
-  ``dense`` family so far).
+  ``dense``, ``moe`` and ``mla_moe`` families so far).
 * :class:`TrainConfig` — optimizer knobs (AdamW, its warmup-cosine
   schedule, gradient clipping), a field-for-field copy of
   ``repro.config.TrainConfig``, with the same defaults.

@@ -2,8 +2,9 @@
 
 Each registered architecture has a module here exporting ``config()`` (the
 exact published configuration) and ``reduced()`` (a tiny same-family config
-for CPU tests), copied from the JAX package's ``repro.configs``. The port
-serves the ``dense`` family, so only ``smollm-135m`` is registered so far.
+for CPU tests), copied from the JAX package's ``repro.configs``: the
+architectures of the families the port serves so far (``dense``, ``moe``,
+``mla_moe``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,12 @@ from typing import Dict
 from repro_torch.config import ArchConfig
 
 _ARCH_MODULES: Dict[str, str] = {
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
+    "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
+    "granite-3-8b": "repro_torch.configs.granite_3_8b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -19,8 +19,9 @@
 // added; the output is acc / max(l, 1e-30) in q's type. Tiles wholly above
 // the diagonal are skipped. Unlike the TPU kernel any Sq and Skv are taken:
 // query rows past Sq are not written, keys past Skv get the -1e30 fill (and
-// V rows of 0), so they contribute nothing. Every d_head of the repo's
-// configurations (16, 32, 64, 128, 160, 256) is a template instance. Sums
+// V rows of 0), so they contribute nothing. Every head width of the repo's
+// configurations (16, 32, 64, 128, 160, 256, and MLA's nope + rope = 192)
+// is a template instance. Sums
 // run in a fixed order with no atomics, so two launches give the same bits.
 //
 // Two designs, one per type:
@@ -243,6 +244,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b,
     case 64: FA_LAUNCH(64);
     case 128: FA_LAUNCH(128);
     case 160: FA_LAUNCH(160);
+    case 192: FA_LAUNCH(192);
     case 256: FA_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -256,7 +258,7 @@ extern "C" {
 // Launches the kernel on `stream` and returns a cudaError_t as an int
 // (0 = launched). `elem_bytes` is 4 for float32 and 2 for bfloat16. Shapes
 // are validated by the Python wrapper (Hq a multiple of Hkv >= 1, Sq >= 1,
-// Skv >= 1, d in {16, 32, 64, 128, 160, 256}).
+// Skv >= 1, d in {16, 32, 64, 128, 160, 192, 256}).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int elem_bytes, int b, int hq, int hkv,
                            int sq, int skv, int d, int causal, void* stream) {

@@ -555,6 +555,7 @@ inline int launch_d(const void* q, const void* k, const void* v, void* o,
     case 64: FA_BF16_LAUNCH(64);
     case 128: FA_BF16_LAUNCH(128);
     case 160: FA_BF16_LAUNCH(160);
+    case 192: FA_BF16_LAUNCH(192);
     case 256: FA_BF16_LAUNCH(256);
     default: return (int)cudaErrorInvalidValue;
   }

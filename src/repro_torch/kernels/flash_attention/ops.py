@@ -18,7 +18,8 @@ import torch
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128, 160, 256)   # every d_head of the repo's configs
+# every head width of the configs (MLA: nope + rope = 192)
+HEAD_DIMS = (16, 32, 64, 128, 160, 192, 256)
 _GRID_YZ = 65535       # CUDA's limit on gridDim.y (Hq) and gridDim.z (B)
 
 

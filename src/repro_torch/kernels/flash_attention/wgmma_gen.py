@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 
-RS_WIDTHS = (16, 32, 64, 128, 160, 256)   # N of P·V's m64nNk16: every d
+RS_WIDTHS = (16, 32, 64, 128, 160, 192, 256)   # N of P·V: every d
 SS_WIDTHS = (64, 128)                      # N of S's m64nNk16: BK
 HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "wgmma.cuh")

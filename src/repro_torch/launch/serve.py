@@ -1,6 +1,7 @@
 """Serving driver: batched prefill, then decode.
 
-A port of ``repro.launch.serve``. Demo on the host (reduced config):
+A port of ``repro.launch.serve``. Demo on the host (reduced config; any
+registered ``--arch``: dense, dbrx's ``moe``, deepseek-v2's ``mla_moe``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --device cpu --requests 8 --max-new 16
@@ -24,9 +25,10 @@ from repro_torch.models import lm
 
 
 def merge_caches(full: List[Dict], prefill: List[Dict]) -> List[Dict]:
-    """Copy prefill caches (``[n, B, Hkv, S, dh]`` leaves) into the first
-    S positions of the decode caches ``full`` (the same leaves with
-    ``S_cache >= S``), in place; returns ``full``."""
+    """Copy prefill caches into the first S positions of the decode caches
+    ``full`` (the same leaves with ``S_cache >= S``), in place; returns
+    ``full``. S is axis -2 of every leaf: ``[n, B, Hkv, S, dh]`` for k and
+    v, ``[n, B, S, r]`` for MLA's latent ``c`` and ``k_rope``."""
     for dst_seg, src_seg in zip(full, prefill):
         for key, dst_layer in dst_seg.items():
             for name, dst in dst_layer.items():

@@ -1,9 +1,10 @@
-"""GQA attention: training, prefill through the flash-attention kernel,
-cached decode.
+"""GQA and MLA attention: training, prefill through the flash-attention
+kernel, cached decode.
 
-A port of the GQA part of ``repro.models.attention``. Where the JAX package
-computes prefill attention with its XLA path (``mea_attention``), the port
-calls :func:`repro_torch.kernels.flash_attention.ops.flash_attention`, which
+A port of the GQA and MLA parts of ``repro.models.attention``. Where the
+JAX package computes prefill attention with its XLA path
+(``mea_attention``), the port calls
+:func:`repro_torch.kernels.flash_attention.ops.flash_attention`, which
 computes the same function: the hand-written kernel for a CUDA tensor, the
 plain version for a CPU tensor. That kernel has no backward (nor has the
 JAX package's Pallas kernel), so the training objective attends through
@@ -18,6 +19,14 @@ cache ``[B, Hkv, S_cache, dh]``. Decode writes the new token's k/v into the
 cache tensors in place (the JAX package returns updated copies): a serving
 cache is the largest thing on the device, and a copy per token would
 double it.
+
+MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
+latent ``c`` ``[B, S, kv_lora]`` and the shared rope key ``k_rope`` ``[B,
+S, rope_d]``. Its prefill expands them to per-head keys and values and
+attends through ``attend`` at a head width of ``nope + rope`` (v zero-padded
+to it, the output sliced back), as the JAX package does, padded further to
+the next width the kernel takes where ``nope + rope`` is not one; decode attends in
+plain PyTorch, expanded or with the absorbed projections.
 """
 from __future__ import annotations
 
@@ -28,8 +37,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import _normal, apply_rope
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, flash_attention
+from repro_torch.models.layers import (_normal, apply_norm, apply_rope,
+                                       init_norm)
 
 NEG_INF = -1e30
 _LATER = "not ported yet: it comes with the slice of the families that use it"
@@ -269,4 +279,127 @@ def make_kv_cache(batch: int, n_kv: int, size: int, d_head: int, dtype,
                          device=device),
         "v": torch.zeros((batch, n_kv, size, d_head), dtype=dtype,
                          device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """MLA weights, in the JAX package's layouts: ``wq_a`` ``[D, q_lora]``,
+    ``q_norm``, ``wq_b`` ``[q_lora, H, nope + rope]``, ``wkv_a`` ``[D,
+    kv_lora]``, ``kv_norm``, ``wk_rope`` ``[D, rope]``, ``wk_b`` ``[kv_lora,
+    H, nope]``, ``wv_b`` ``[kv_lora, H, v]``, ``wo`` ``[H, v, D]``."""
+
+    def __init__(self, gen: torch.Generator, cfg, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope_d, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+        s = d ** -0.5
+        self.wq_a = _normal(gen, (d, qr), s, device, dtype)
+        self.q_norm = init_norm(qr, "rmsnorm", device, dtype)
+        self.wq_b = _normal(gen, (qr, h, nope + rope_d), qr ** -0.5, device,
+                            dtype)
+        self.wkv_a = _normal(gen, (d, kvr), s, device, dtype)
+        self.kv_norm = init_norm(kvr, "rmsnorm", device, dtype)
+        self.wk_rope = _normal(gen, (d, rope_d), s, device, dtype)
+        self.wk_b = _normal(gen, (kvr, h, nope), kvr ** -0.5, device, dtype)
+        self.wv_b = _normal(gen, (kvr, h, vd), kvr ** -0.5, device, dtype)
+        self.wo = _normal(gen, (h, vd, d), (h * vd) ** -0.5, device, dtype)
+
+
+def init_mla(gen: torch.Generator, cfg, device=None,
+             dtype=torch.float32) -> MLA:
+    return MLA(gen, cfg, device, dtype)
+
+
+def apply_mla(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg, *,
+              cache: Optional[Dict] = None, cache_index: Optional[int] = None,
+              absorb: bool = False, attend: Callable = flash_attention):
+    """MLA self-attention, causal, RoPE on the rope part of q and k.
+
+    Full sequence (``cache is None``): ``attend(q, k, v, causal=True)`` at
+    head width ``nope + rope`` (its scale ``1/sqrt(nope + rope)``), or, where
+    the kernel does not take that width, at the next one in ``HEAD_DIMS``
+    with q, k and v zero-padded to it and q scaled by ``sqrt(padded /
+    (nope + rope))``; returns ``(y, (c, k_rope))``. Decode (``cache={"c", "k_rope"}``): writes the
+    token's latent and rope key into the cache in place and attends against
+    positions ``<= cache_index``, scores scaled by ``(nope + rope) ** -0.5``;
+    ``absorb`` folds ``wk_b`` into the query and ``wv_b`` into the output,
+    so the step works in the latent width instead of expanding K and V.
+    Returns ``(y, cache)``."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+
+    ql = apply_norm(p.q_norm, x @ p.wq_a.to(dt), "rmsnorm")
+    q = _project(ql, p.wq_b)                           # [b, s, h, nope+rope]
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c = apply_norm(p.kv_norm, x @ p.wkv_a.to(dt), "rmsnorm")   # [b, s, kvr]
+    k_rope = apply_rope((x @ p.wk_rope.to(dt))[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]               # [b, s, rope]
+    wk_b, wv_b = p.wk_b.to(dt), p.wv_b.to(dt)
+
+    if cache is not None:
+        cache["c"][:, cache_index:cache_index + s].copy_(c)
+        cache["k_rope"][:, cache_index:cache_index + s].copy_(k_rope)
+        c_all, kr_all = cache["c"].to(dt), cache["k_rope"].to(dt)
+        valid = torch.arange(c_all.shape[1], device=x.device) <= cache_index
+        scale = (nope + rope_d) ** 0.5
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr_all)
+        if absorb:
+            # q_nope·(wk_b c) = (wk_b^T q_nope)·c: the latent side is smaller
+            q_eff = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)
+            s_nope = torch.einsum("bshr,btr->bhst", q_eff, c_all)
+        else:
+            k_nope = torch.einsum("btr,rhk->bthk", c_all, wk_b)
+            s_nope = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+        scores = (s_nope + s_rope).float() / scale
+        scores = scores.masked_fill(~valid, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(dt)
+        if absorb:
+            ctx = torch.einsum("bhst,btr->bshr", w, c_all)
+            out = torch.einsum("bshr,rhv->bshv", ctx, wv_b)
+        else:
+            vv = torch.einsum("btr,rhv->bthv", c_all, wv_b)
+            out = torch.einsum("bhst,bthv->bshv", w, vv)
+    else:
+        # prefill / training: expand k and v, attend at width nope + rope
+        k_nope = torch.einsum("bsr,rhk->bshk", c, wk_b)
+        v = torch.einsum("bsr,rhv->bshv", c, wv_b)
+        k_rope_b = k_rope[:, :, None, :].expand(b, s, h, rope_d)
+        # the kernel takes the widths in HEAD_DIMS: pad to the next one
+        # (zeros add nothing to q·k) and scale q so that the softmax scale
+        # stays 1/sqrt(nope + rope)
+        width = nope + rope_d
+        dk = min((w for w in HEAD_DIMS if w >= width), default=width)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        if dk != width:
+            q_full = q_full * (dk / width) ** 0.5
+        q_full = F.pad(q_full, (0, dk - width)).transpose(1, 2)
+        k_full = F.pad(torch.cat([k_nope, k_rope_b], dim=-1),
+                       (0, dk - width)).transpose(1, 2)
+        v_pad = F.pad(v, (0, dk - vd)).transpose(1, 2)
+        out = attend(q_full.contiguous(), k_full.contiguous(),
+                     v_pad.contiguous(), causal=True)
+        out = out.transpose(1, 2)[..., :vd]
+    y = out.reshape(b, s, h * vd) @ p.wo.to(dt).reshape(h * vd, -1)
+    if cache is not None:
+        return y, cache
+    return y, (c, k_rope)
+
+
+def make_mla_cache(batch: int, size: int, cfg, dtype,
+                   device=None) -> Dict[str, torch.Tensor]:
+    return {
+        "c": torch.zeros((batch, size, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        "k_rope": torch.zeros((batch, size, cfg.rope_head_dim), dtype=dtype,
+                              device=device),
     }

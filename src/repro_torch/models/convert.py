@@ -10,9 +10,15 @@ init_params`` builds (or a checkpoint of it), as numpy arrays:
      "final_norm": {"scale": [D]},
      "lm_head": {"w": [D, V]}}          # only without tied embeddings
 
-with each segment's leaves stacked over its ``n`` groups, and returns the
-port's :class:`repro_torch.models.lm.LM` holding the same numbers, so both
-packages compute the same function. ``params_to_jax`` goes the other way,
+with each segment's leaves stacked over its ``n`` groups (a layer's keys
+are its kind's: ``moe`` {``router``, ``wi``, ``wg``, ``wo``} and
+``shared`` for the MoE kinds, MLA's ``attn`` {``wq_a``, ``q_norm``,
+``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_rope``, ``wk_b``, ``wv_b``, ``wo``};
+deepseek-v2 has two segments), and returns the port's
+:class:`repro_torch.models.lm.LM` holding the same numbers, so both
+packages compute the same function. A tree whose experts went through the
+JAX package's ``quantize_expert_weights`` (int8 ``wi`` / ``wg`` / ``wo``
+beside fp32 ``*_scale`` leaves) gives a model with int8 experts. ``params_to_jax`` goes the other way,
 and ``jax_leaves`` maps any tree of that layout (AdamW's moments too) onto
 the model's parameters: how a training checkpoint carries across.
 """
@@ -25,7 +31,7 @@ import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.dispatch import Device, resolve_device
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, quantize_experts
 
 
 def _path(name: str) -> Tuple[tuple, Optional[int]]:
@@ -131,6 +137,8 @@ def params_from_jax(tree: Mapping, cfg: ArchConfig,
     -> the GPU, raising without one)."""
     device = resolve_device(device)
     model = LM(cfg, torch.Generator(device=device), device, dtype)
+    if any(p[-1].endswith("_scale") for p in _leaf_paths(tree, ())):
+        quantize_experts(model)
     with torch.no_grad():
         for param, arr in zip(model.parameters(), jax_leaves(model, tree)):
             param.copy_(torch.from_numpy(np.array(arr)))

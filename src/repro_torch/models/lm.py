@@ -1,12 +1,13 @@
 """Top-level LM assembly: init, train loss, prefill, decode.
 
-A port of ``repro.models.lm`` for the ``dense`` family: the training
-objective ``loss_fn`` (next-token cross entropy through
-:func:`chunked_xent`, attention through ``mea_attention``, which has a
-gradient), and the serving steps ``prefill_step`` (full-sequence forward
-emitting last-position logits and the KV cache, attention through the
-flash-attention kernel) and ``decode_step`` (one new token against the
-cache).
+A port of ``repro.models.lm`` for the ``dense``, ``moe`` (dbrx) and
+``mla_moe`` (deepseek-v2) families: the training objective ``loss_fn``
+(next-token cross entropy through :func:`chunked_xent` plus ``aux_weight``
+times the MoE load-balancing loss summed over the layers; attention
+through ``mea_attention``, which has a gradient), and the serving steps
+``prefill_step`` (full-sequence forward emitting last-position logits and
+the caches, attention through the flash-attention kernel) and
+``decode_step`` (one new token against the caches).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ArchConfig
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.models import blocks
+from repro_torch.models.moe import quantize_expert_weights
 from repro_torch.models.layers import (_normal, apply_norm, embed_tokens,
                                        init_embed, init_norm)
 
@@ -51,6 +53,18 @@ def init_params(cfg: ArchConfig, *, device: Optional[Device] = None,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return LM(cfg, gen, device, dtype)
+
+
+def quantize_experts(params: LM) -> LM:
+    """Every MoE layer's experts to int8 with per-(expert, out-channel)
+    scales (:func:`~.moe.quantize_expert_weights`), in place; returns
+    ``params``. Serving only: int8 weights have no gradient."""
+    for seg in params.segments:
+        for group in seg:
+            for layer in group.values():
+                if hasattr(layer, "moe"):
+                    layer.moe = quantize_expert_weights(layer.moe)
+    return params
 
 
 def _head_weight(params: LM, cfg: ArchConfig) -> torch.Tensor:

@@ -72,6 +72,7 @@ def test_matches_pallas_interpret(b, hq, hkv, sq, skv, d, causal, dtype):
     (2, 9, 3, 1, 1, 64),
     (1, 4, 2, 37, 100, 160),       # Skv > Sq
     (1, 4, 1, 70, 33, 16),         # Skv < Sq: late rows see every key
+    (1, 4, 4, 90, 90, 192),        # MLA's prefill: nope + rope = 192
 ])
 def test_matches_jax_ref_at_ragged_lengths(b, hq, hkv, sq, skv, d, causal,
                                            dtype):
@@ -142,6 +143,7 @@ def worst_over_card_limit(got, want):
     (1, 4, 4, 257, 257, 64, True, 128),      # G = 1
     (1, 4, 2, 200, 200, 256, True, 64),
     (1, 2, 1, 200, 333, 256, False, 64),     # Skv > Sq, not a tile multiple
+    (1, 4, 4, 300, 300, 192, True, 64),      # MLA's width, ragged
 ])
 def test_bf16_kernel_arithmetic_within_the_card_limit(b, hq, hkv, sq, skv, d,
                                                       causal, bk):
@@ -215,6 +217,7 @@ CARD_CASES = [
     (1, 4, 2, 130, 130, 32, True),
     (1, 4, 1, 250, 250, 128, True),
     (1, 2, 2, 190, 333, 128, False),
+    (1, 4, 4, 300, 300, 192, True),
 ]
 
 

@@ -22,9 +22,9 @@ from repro.launch.serve import serve_batch as jax_serve_batch
 from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.launch.serve import merge_caches, serve_batch
-from repro_torch.models import attention, layers, lm
+from repro_torch.models import attention, blocks, layers, lm
 from repro_torch.models.convert import params_from_jax
 
 LAYER_TOL = 1e-5
@@ -324,4 +324,40 @@ def test_params_from_jax_rejects_a_tree_that_does_not_fit():
     with pytest.raises(ValueError, match="groups"):
         params_from_jax(tree, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="family"):
-        lm.init_params(dataclasses.replace(cfg, family="moe"), device="cpu")
+        lm.init_params(dataclasses.replace(cfg, family="hybrid"),
+                       device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["rec", "mlstm", "slstm", "lattn", "enc",
+                                  "dec"])
+def test_unported_layer_kinds_raise(kind):
+    cfg = get_arch("smollm-135m", True)
+    with pytest.raises(NotImplementedError, match=f"kind {kind!r}"):
+        blocks.init_layer(torch.Generator(), cfg, kind)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        blocks.init_layer_cache(cfg, kind, 1, 4, torch.float32)
+
+
+def test_registered_configs_are_the_jax_packages():
+    """Every architecture the port registers is the JAX package's, field
+    for field, published and reduced."""
+    for arch in ARCH_IDS:
+        for reduced in (False, True):
+            assert dataclasses.asdict(get_arch(arch, reduced)) == \
+                dataclasses.asdict(jax_get_arch(arch, reduced))
+    for arch in ("dbrx-132b", "deepseek-v2-236b"):
+        assert not get_arch(arch).tie_embeddings      # each has its head
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "granite-3-8b",
+                                  "stablelm-12b"])
+def test_dense_registry_configs_prefill_matches_jax(arch):
+    jcfg, cfg = jax_get_arch(arch, True), get_arch(arch, True)
+    jparams = jax_lm.init_params(jax.random.PRNGKey(3), jcfg)
+    params = params_from_jax(numpy_tree(jparams), cfg, device="cpu")
+    toks = tokens(cfg.vocab, 2, 40, seed=2)
+    want, _ = jax_lm.prefill_step(jparams, {"tokens": jnp.asarray(toks)},
+                                  jcfg, dtype=jnp.float32)
+    got, _ = lm.prefill_step(params, {"tokens": torch.from_numpy(toks)}, cfg,
+                             dtype=torch.float32)
+    close(got, want, LOGIT_TOL)
