@@ -36,9 +36,13 @@
    one KV head per query head, non-causal with Skv > Sq, every other
    head size and the MoE prefills' shapes (dbrx-132b: B=4, Hq=48, Hkv=8,
    S=1,024, d=128; deepseek-v2-236b's MLA: B=2, Hq=Hkv=128, S=1,024,
-   d=192; d=192 at S=300); two launches must give the same bits. Checks that the bf16
-   instances run on the tensor cores and load by TMA (``HGMMA`` and
-   ``UTMALDG`` in each one's SASS) and logs their registers. Times kernel,
+   d=192; d=192 at S=300) and the recurrent and encoder families' (phase
+   10c: recurrentgemma-9b's MQA 16:1 at d=256, llava-next-34b's GQA 7:1
+   at S=1,600, whisper-tiny's encoder, non-causal at S=1,500, and its
+   cross-attention, Sq=64, Skv=1,500); two launches must give the same
+   bits. Checks that the bf16 instances run on the tensor cores and load
+   by TMA (``HGMMA`` and ``UTMALDG`` in each one's SASS) and logs their
+   registers. Times kernel,
    plain version and ``scaled_dot_product_attention`` at the serving shape
    and the two MoE prefills' shapes in fp32 and bf16.
 6. Drives the port's generation path through ``TabularGenerator`` at the
@@ -126,6 +130,24 @@
    prefill logits within 1e-4, 8 greedy tokens equal, a training step's
    loss within 1e-5 relative, aux within 1e-5, every gradient within 1e-4
    of its leaf's largest entry.
+10c. Serves the recurrent and encoder families at their published widths
+   (``drive_recurrent_encdec_serving``): xlstm-1.3b cut to 8 layers (one
+   group of 7 mLSTM + 1 sLSTM; B=4, S=2,048), recurrentgemma-9b to 5 (a
+   (rec, rec, attn) group and the trailing (rec, rec), as 38 = 12 x 3 + 2;
+   B=2, S=2,048), llava-next-34b to 2 (B=2, 576 patch embeddings + 1,024
+   tokens) and whisper-tiny at full depth (4 + 4; B=8, 1,500 frames, 64
+   tokens), seeded weights: ``lm.prefill_step`` then 16 greedy
+   ``lm.decode_step`` steps at fp32 and at bf16 (xLSTM and recurrentgemma
+   also through ``serve_batch``, tokens equal), prefill seconds, decode ms
+   a step, device peak, one flash-attention launch a prefill attention
+   layer (whisper: encoder, self and cross) and none in decode, a profiled
+   prefill split into scans, conv, projections, ``flash_attention`` and the
+   rest; ``flash_attention`` timed at the families' shapes against its
+   plain version and ``scaled_dot_product_attention``; then each family at
+   reduced() on the card against the CPU: prefill logits within 1e-4 of
+   the largest, 4 greedy decode tokens equal, a training step's loss
+   within 1e-5 relative and every gradient within 1e-4 of its leaf's
+   largest entry.
 10b. Trains smollm-135m at its published width and depth (seeded weights)
    through ``repro_torch.train.loop.train`` on ``FastTokenStream``
    batches of 8 x 2,048 tokens, remat "full", fp32 masters, AdamW: 4 steps
@@ -2546,16 +2568,16 @@ def check_tensor_cores(lib_path):
     return counts
 
 
-def time_flash(device, shape, dtype):
+def time_flash(device, shape, dtype, causal=True):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q, k, v = flash_inputs(*shape, dtype, seed=7, device=device)
-    ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal), 10)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal), 3)
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                       enable_gqa=True), 10)
-    nbytes, ops = flash_bytes_ops(*shape, True, q.element_size())
+    nbytes, ops = flash_bytes_ops(*shape, causal, q.element_size())
     rate = FP32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / rate * 1e3
@@ -3243,6 +3265,327 @@ def drive_moe_serving(device):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# the recurrent and encoder families
+# ---------------------------------------------------------------------------
+
+# each family at its published widths, the depth cut to fit the phase:
+# (layers, B, prompt tokens); llava prepends its 576 patch embeddings,
+# whisper's decoder attends to 1,500 frames (its 30 s window)
+FAMILY_SERVE = {
+    "xlstm-1.3b": (8, 4, 2048),          # one group: 7 mLSTM + 1 sLSTM
+    "recurrentgemma-9b": (5, 2, 2048),   # (rec, rec, attn) + (rec, rec)
+    "llava-next-34b": (2, 2, 1024),      # + 576 patches
+    "whisper-tiny": (4, 8, 64),          # full depth, 4 + 4; 1,500 frames
+}
+FAMILY_NEW = 16                          # decode steps after the prefill
+WHISPER_FRAMES = 1500
+FAMILY_SMALL = (2, 40)                   # card vs CPU at reduced(): B, S
+# flash_attention at the families' prefill shapes (B, Hq, Hkv, Sq, Skv, d)
+FA_FAMILIES = {
+    "recurrentgemma-9b attn (MQA 16:1)": ((2, 16, 1, 2048, 2048, 256), True),
+    "llava-next-34b (GQA 7:1)": ((2, 56, 8, 1600, 1600, 128), True),
+    "whisper-tiny encoder": ((8, 6, 6, 1500, 1500, 64), False),
+    "whisper-tiny cross": ((8, 6, 6, 64, 1500, 64), False),
+}
+_SPANS = ("recurrent.scan", "recurrent.conv")
+_PRODUCTS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def family_config(arch):
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch),
+                               n_layers=FAMILY_SERVE[arch][0])
+
+
+def family_batch(cfg, b, s, device, seed=1, frames=WHISPER_FRAMES):
+    """A seeded prompt on ``device``: tokens, and llava's stub patch
+    embeddings or whisper's ``frames`` stub frames (N(0, 1), as the
+    launchers draw them)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                     device=device)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model),
+                                       generator=g, device=device)
+    if cfg.family == "audio_encdec":
+        batch["frames"] = torch.randn((b, frames, cfg.d_model), generator=g,
+                                      device=device)
+    return batch
+
+
+def flash_launches_per_prefill(cfg):
+    """flash_attention launches of one prefill: one per attention layer
+    (recurrentgemma's attn, llava's dense layers), whisper's encoder
+    layers, decoder self- and cross-attention; none for xLSTM."""
+    from repro_torch.models import blocks
+    if cfg.family == "audio_encdec":
+        return 3 * cfg.n_layers
+    return sum(n * sum(k in ("attn", "dense") for k in kinds)
+               for kinds, n in blocks.segments_for(cfg))
+
+
+def prefill_decode(params, cfg, batch, new, dtype, device):
+    """What ``serve_batch`` does, for any family: ``lm.prefill_step``, the
+    caches merged into decode caches of prompt + new positions (whisper:
+    one cross slot a frame), the argmax token, then ``new`` greedy decode
+    steps. Returns (tokens [B, new + 1], prefill seconds, decode seconds a
+    step, the prefill's flash_attention launches, the decode's)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.serve import merge_caches
+    from repro_torch.models import lm
+    b = batch["tokens"].shape[0]
+    s = batch["tokens"].shape[1] + (cfg.n_patches if cfg.family == "vlm"
+                                    else 0)
+    kw = ({"enc_len": batch["frames"].shape[1]}
+          if cfg.family == "audio_encdec" else {})
+    flash_attention.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    logits, pc = lm.prefill_step(params, batch, cfg, dtype=dtype)
+    cache = merge_caches(lm.init_cache(cfg, b, s + new, dtype, device, **kw),
+                         pc)
+    del pc
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    sync(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    out = [tok]
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    for i in range(new):
+        logits, cache = lm.decode_step(params, cache, tok, s + i, cfg,
+                                       dtype=dtype)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        out.append(tok)
+    sync(device)
+    decode_s = (time.perf_counter() - t0) / max(new, 1)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{cfg.name}: non-finite decode logits")
+    return (torch.cat(out, dim=1).cpu().numpy(), prefill_s, decode_s,
+            prefill_launches, flash_attention.launches)
+
+
+def _under(event, names):
+    parent = event.cpu_parent
+    while parent is not None:
+        if parent.name in names:
+            return True
+        parent = parent.cpu_parent
+    return False
+
+
+def family_breakdown(params, cfg, batch, device, dtype):
+    """Profile one prefill: the device's busy seconds split into the scans
+    (the ``recurrent.scan`` span: the associative scans and the mLSTM's
+    chunk loop), the temporal conv (``recurrent.conv``), the projections
+    (matrix products outside those spans: every projection, the MLPs, the
+    head), ``flash_attention`` and the rest (norms, gates, casts, the
+    embedding, elementwise work)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, _ = lm.prefill_step(params, batch, cfg, dtype=dtype)
+        sync(device)
+    events = prof.events()
+    cpu = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in _SPANS]
+    busy = sum(e.device_time_total for e in kernels) / 1e6
+    fa = sum(e.device_time_total for e in kernels
+             if "fa_kernel" in e.name or "fa_wgmma_kernel" in e.name) / 1e6
+    spans = {name: sum(e.device_time_total for e in cpu if e.name == name
+                       and not _under(e, _SPANS)) / 1e6 for name in _SPANS}
+    products = sum(e.device_time_total for e in cpu if e.name in _PRODUCTS
+                   and not _under(e, _SPANS + _PRODUCTS)) / 1e6
+    out = {"device_busy_s": busy, "scans_s": spans["recurrent.scan"],
+           "conv_s": spans["recurrent.conv"], "projections_s": products,
+           "flash_attention_s": fa}
+    out["rest_s"] = busy - sum(v for k, v in out.items()
+                               if k != "device_busy_s")
+    return logits, out
+
+
+def serve_family(arch, device):
+    """One family at published width (``family_config``): a short warm-up
+    in each dtype, then at fp32 and at bf16 ``prefill_decode`` (FAMILY_NEW greedy steps;
+    the prefill's flash_attention launches as ``flash_launches_per_prefill``
+    says, none in decode; tokens in range) with the device peak, and a
+    profiled prefill (``family_breakdown``). xLSTM and recurrentgemma (their
+    prompt is tokens alone) are also served through ``serve_batch``, whose
+    fp32 tokens must equal ``prefill_decode``'s. Returns (kernel launches
+    of the timed runs, numbers)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    cfg = family_config(arch)
+    _, b, s = FAMILY_SERVE[arch]
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, device=device, seed=0)
+    sync(device)
+    n_params = sum(p.numel() for p in params.parameters())
+    out = {"layers": cfg.n_layers, "batch": b, "prompt": s,
+           "new": FAMILY_NEW, "parameters": n_params,
+           "init_s": time.perf_counter() - t0}
+    log(f"{arch}: {cfg.n_layers} layers ({blocks_of(cfg)}), d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}: {n_params} parameters "
+        f"({n_params * 4 / 1e9:.2f} GB fp32) seeded on {device.type} in "
+        f"{out['init_s']:.2f} s")
+    batch = family_batch(cfg, b, s, device)
+    if "frames" in batch:
+        out["frames"] = batch["frames"].shape[1]
+    expect = flash_launches_per_prefill(cfg)
+    # a warm-up in each dtype (cuBLAS picks its bf16 paths at first use)
+    warm = {k: v[:1, :64] if k == "tokens" else v[:1]
+            for k, v in batch.items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        prefill_decode(params, cfg, warm, 2, dtype, device)
+    launches = 0
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.cuda.reset_peak_memory_stats(device)
+        toks, prefill_s, decode_s, n_pre, n_dec = prefill_decode(
+            params, cfg, batch, FAMILY_NEW, dtype, device)
+        peak = torch.cuda.max_memory_allocated(device)
+        if (toks.shape != (b, FAMILY_NEW + 1) or toks.min() < 0
+                or toks.max() >= cfg.vocab or n_pre != expect or n_dec):
+            raise AssertionError(f"{arch} {name}: tokens {toks.shape}, "
+                                 f"{n_pre} prefill and {n_dec} decode "
+                                 f"flash_attention launches (expected "
+                                 f"{expect} and 0)")
+        launches += n_pre
+        flash_attention.launches = 0
+        logits, parts = family_breakdown(params, cfg, batch, device, dtype)
+        if (flash_attention.launches != expect
+                or not torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch} profiled prefill {name}: wrong "
+                                 f"launch count or non-finite logits")
+        tokens = b * batch["tokens"].shape[1]
+        out[name] = dict(prefill_s=prefill_s,
+                         prefill_tok_per_s=tokens / prefill_s,
+                         decode_ms_per_step=decode_s * 1e3,
+                         decode_tok_per_s=b / decode_s, peak_bytes=peak,
+                         flash_attention_launches=n_pre, **parts)
+        log(f"{arch} B={b} prompt={s} new={FAMILY_NEW} {name}: prefill "
+            f"{prefill_s!r} s ({tokens / prefill_s!r} tok/s), decode "
+            f"{decode_s * 1e3!r} ms a step ({b / decode_s!r} tok/s), device "
+            f"peak {peak} bytes, {n_pre} flash_attention launches a prefill "
+            f"and {n_dec} in decode; profiled prefill: busy "
+            f"{parts['device_busy_s']!r} s, scans {parts['scans_s']!r}, conv "
+            f"{parts['conv_s']!r}, projections {parts['projections_s']!r}, "
+            f"flash_attention {parts['flash_attention_s']!r}, rest "
+            f"{parts['rest_s']!r}")
+        if name == "fp32":
+            fp32_tokens = toks
+        del logits
+    if cfg.family in ("ssm", "hybrid"):
+        gen, stats = serve_batch(cfg, params, batch["tokens"], FAMILY_NEW + 1,
+                                 s + FAMILY_NEW)
+        if not np.array_equal(gen, fp32_tokens):
+            raise AssertionError(f"{arch}: serve_batch's tokens differ from "
+                                 f"prefill_decode's")
+        out["serve_batch"] = stats
+        log(f"{arch}: serve_batch (fp32) gives the same {FAMILY_NEW + 1} "
+            f"tokens; prefill {stats['prefill_s']!r} s, "
+            f"{stats['tok_per_s']!r} tok/s decode")
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def check_families_small(device):
+    """Each family at reduced(), B, S = FAMILY_SMALL (llava: its 8 patches
+    first; whisper: 24 frames), the same weights on the card and on the
+    CPU, fp32, TF32 off: prefill logits and 4 decode steps' logits within
+    SMALL_TOL of the largest |logit|; a training step's loss within
+    LOSS_RTOL relative and every gradient within GRAD_RTOL of its leaf's
+    largest entry on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    cpu = torch.device("cpu")
+    b, s = FAMILY_SMALL
+    out = {}
+    for arch in FAMILY_SERVE:
+        cfg = get_arch(arch, reduced=True)
+        on_cpu = lm.init_params(cfg, device=cpu, seed=3)
+        on_card = copy.deepcopy(on_cpu).to(device)
+        batch = family_batch(cfg, b, s + 1, cpu, seed=3, frames=24)
+        prompt = {k: v[:, :s] if k == "tokens" else v
+                  for k, v in batch.items()}
+        runs = {}
+        for name, model, dev in (("card", on_card, device),
+                                 ("cpu", on_cpu, cpu)):
+            pb = {k: v.to(dev) for k, v in prompt.items()}
+            logits = lm.prefill_step(model, pb, cfg,
+                                     dtype=torch.float32)[0].cpu()
+            toks, *_ = prefill_decode(model, cfg, pb, 4, torch.float32, dev)
+            lb = {k: v.to(dev) for k, v in batch.items()}
+            lb["labels"] = lb["tokens"][:, 1:]
+            lb["tokens"] = lb["tokens"][:, :-1]
+            loss, _ = lm.loss_fn(model, lb, cfg, dtype=torch.float32)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            runs[name] = (logits, toks, loss.item(), [g.cpu() for g in grads])
+        (lc, tc, l_card, gc), (lp, tp, l_cpu, gp) = runs["card"], runs["cpu"]
+        err = ((lc - lp).abs().max() / lp.abs().max()).item()
+        rel = abs(l_card - l_cpu) / abs(l_cpu)
+        grad_rel = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+                       .item() for a, c in zip(gc, gp))
+        same = bool(np.array_equal(tc, tp))
+        out[arch] = {"logits_rel": err, "loss_rel": rel, "grad_rel": grad_rel,
+                     "tokens_equal": same}
+        log(f"{arch} reduced() B={b} S={s} on {device.type} vs plain on cpu: "
+            f"prefill logits max abs diff {err!r} of the largest |logit|, "
+            f"4 greedy decode tokens equal: {same}; training step loss "
+            f"{l_card!r} vs {l_cpu!r} (relative {rel!r}), gradients worst "
+            f"leaf {grad_rel!r} of its largest entry")
+        if (err > SMALL_TOL or not same or rel > LOSS_RTOL
+                or grad_rel > GRAD_RTOL):
+            raise AssertionError(f"{arch}: the card and the plain path "
+                                 f"disagree")
+    return out
+
+
+def time_family_shapes(device):
+    """flash_attention at the families' prefill shapes (FA_FAMILIES), fp32
+    and bf16: kernel, plain version, ``scaled_dot_product_attention`` and
+    the bound."""
+    out = {}
+    for label, (shape, causal) in FA_FAMILIES.items():
+        for dtype in FA_TOL:
+            ft = time_flash(device, shape, dtype, causal)
+            out.setdefault(label, {})[str(dtype)[6:]] = ft
+            log(f"flash_attention at the {label} shape {shape} causal="
+                f"{causal} {str(dtype)[6:]}: kernel {ft['ms']!r} ms, plain "
+                f"{ft['plain_ms']!r} ms, scaled_dot_product_attention "
+                f"{ft['library_ms']!r} ms (kernel / that "
+                f"{ft['ms'] / ft['library_ms']!r}), bound {ft['bound_ms']!r} "
+                f"ms ({ft['bound_by']}: {ft['ops']} operations, "
+                f"{ft['bytes']} bytes)")
+    return out
+
+
+def drive_recurrent_encdec_serving(device):
+    """The recurrent and encoder families' serving phase: each at published
+    width (``serve_family``), flash_attention timed at their shapes
+    (``time_family_shapes``), then card against CPU at reduced()
+    (``check_families_small``). Returns (flash_attention launches of the
+    timed prefills, numbers)."""
+    t0 = time.perf_counter()
+    launches, out = 0, {}
+    for arch in FAMILY_SERVE:
+        n, out[arch] = serve_family(arch, device)
+        launches += n
+    out["flash_attention_shapes"] = time_family_shapes(device)
+    out["card_vs_cpu"] = check_families_small(device)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"recurrent / encoder serving phase: {out['phase_s']!r} s")
+    return launches, out
+
+
 def flash_phase(device):
     """flash_attention against its plain version at every case, then timed
     at smollm-135m's serving shape and the two MoE prefills' shapes in fp32
@@ -3262,6 +3605,8 @@ def flash_phase(device):
     cases += [("dbrx-132b prefill (GQA 6:1)", FA_DBRX, True),
               ("deepseek-v2-236b MLA prefill", FA_DEEPSEEK, True),
               ("d=192 ragged", (2, 16, 16, 300, 300, 192), True)]
+    cases += [(label, shape, causal)
+              for label, (shape, causal) in FA_FAMILIES.items()]
     worst = check_flash(device, cases)
     timing, moe_timing = {}, {}
     for label, shape in (("serving", FA_SERVE), ("dbrx-132b", FA_DBRX),
@@ -3396,6 +3741,12 @@ def main() -> int:
     fa_launches += moe_launches
     torch.cuda.empty_cache()
 
+    # -- the recurrent and encoder families' serving path --------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    family_launches, family_serving = drive_recurrent_encdec_serving(device)
+    fa_launches += family_launches
+    torch.cuda.empty_cache()
+
     # -- the LM training path -------------------------------------------------
     forest_predict.launches = histogram.launches = flash_attention.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
@@ -3477,6 +3828,7 @@ def main() -> int:
                       "flash_attention_moe_shapes": fa_moe_timing,
                       "serving": serving,
                       "moe_serving": moe_serving,
+                      "family_serving": family_serving,
                       "lm_training": lm_training,
                       "forest_serving": dict(
                           forest_serving, tree_predict_launches=fs_tp,

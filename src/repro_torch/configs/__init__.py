@@ -2,9 +2,8 @@
 
 Each registered architecture has a module here exporting ``config()`` (the
 exact published configuration) and ``reduced()`` (a tiny same-family config
-for CPU tests), copied from the JAX package's ``repro.configs``: the
-architectures of the families the port serves so far (``dense``, ``moe``,
-``mla_moe``).
+for CPU tests), copied from the JAX package's ``repro.configs``: all ten
+of its architectures, in its order.
 """
 from __future__ import annotations
 
@@ -16,10 +15,14 @@ from repro_torch.config import ArchConfig
 _ARCH_MODULES: Dict[str, str] = {
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3_8b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

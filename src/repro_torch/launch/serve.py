@@ -1,7 +1,10 @@
 """Serving driver: batched prefill, then decode.
 
 A port of ``repro.launch.serve``. Demo on the host (reduced config; any
-registered ``--arch``: dense, dbrx's ``moe``, deepseek-v2's ``mla_moe``):
+registered ``--arch`` whose prompt is tokens alone: dense, dbrx's ``moe``,
+deepseek-v2's ``mla_moe``, xlstm's ``ssm``, recurrentgemma's ``hybrid``;
+llava-next's patches and whisper's frames go through ``lm.prefill_step`` /
+``lm.decode_step`` directly, as in the JAX package):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --device cpu --requests 8 --max-new 16
@@ -25,15 +28,19 @@ from repro_torch.models import lm
 
 
 def merge_caches(full: List[Dict], prefill: List[Dict]) -> List[Dict]:
-    """Copy prefill caches into the first S positions of the decode caches
-    ``full`` (the same leaves with ``S_cache >= S``), in place; returns
-    ``full``. S is axis -2 of every leaf: ``[n, B, Hkv, S, dh]`` for k and
-    v, ``[n, B, S, r]`` for MLA's latent ``c`` and ``k_rope``."""
+    """Copy prefill caches into the decode caches ``full`` in place, leaf by
+    leaf, as the JAX package's ``serve_batch`` merges them: a leaf of the
+    same shape is copied whole (a recurrent state, a ``lattn`` ring that
+    the prompt filled, whisper's cross k/v), otherwise into the leading
+    slice of each axis that differs (k/v ``[n, B, Hkv, S, dh]`` and MLA's
+    ``[n, B, S, r]`` along S). Returns ``full``."""
     for dst_seg, src_seg in zip(full, prefill):
         for key, dst_layer in dst_seg.items():
             for name, dst in dst_layer.items():
                 src = src_seg[key][name]
-                dst[..., :src.shape[-2], :].copy_(src)
+                if dst.shape != src.shape:
+                    dst = dst[tuple(slice(0, n) for n in src.shape)]
+                dst.copy_(src)
     return full
 
 

@@ -5,7 +5,9 @@ A port of ``repro.launch.train``. On the host, a reduced config:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --device cpu --steps 100 --ckpt-dir /tmp/ckpt
 
-Without ``--device`` it trains on the GPU and raises where there is none.
+Any registered ``--arch`` trains, as with the JAX launcher (llava-next
+and whisper on seeded stub patches and frames). Without ``--device`` it
+trains on the GPU and raises where there is none.
 The data is ``FastTokenStream``'s (a batch is a pure function of the seed
 and the step), so a run resumed from ``--ckpt-dir``'s latest commit
 continues exactly.
@@ -13,6 +15,8 @@ continues exactly.
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
 
 from repro_torch.config import TrainConfig
 from repro_torch.configs import ARCH_IDS, get_arch
@@ -45,8 +49,24 @@ def main(argv=None):
                        total_steps=args.steps, remat_policy=args.remat)
     stream = FastTokenStream(cfg.vocab, args.seq, args.batch, seed=0)
 
+    def data_fn(i):
+        """Step i's batch; llava-next's stub patch embeddings and whisper's
+        stub frames drawn from a generator seeded with i, as the JAX
+        launcher draws them."""
+        b = stream.batch_at(i)
+        if cfg.family == "vlm":
+            rng = np.random.default_rng(i)
+            b["patches"] = rng.normal(
+                size=(args.batch, cfg.n_patches, cfg.d_model)).astype(
+                    np.float32)
+        elif cfg.family == "audio_encdec":
+            rng = np.random.default_rng(i)
+            b["frames"] = rng.normal(
+                size=(args.batch, args.seq, cfg.d_model)).astype(np.float32)
+        return b
+
     def job():
-        return train(cfg, tcfg, stream.batch_at, steps=args.steps,
+        return train(cfg, tcfg, data_fn, steps=args.steps,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                      accum=args.accum, device=device)
 

@@ -20,6 +20,13 @@ cache tensors in place (the JAX package returns updated copies): a serving
 cache is the largest thing on the device, and a copy per token would
 double it.
 
+GQA also serves the other families' attention: an encoder's (whisper's
+``enc``: not causal, no RoPE), a cross-attention over an encoder's keys
+and values (``cross_kv``: not causal, Sq ≠ Skv) and local attention
+(``window``: prefill through :func:`mea_attention`'s band, as the
+reference's prefill does, since the kernel has no band; decode into a
+ring buffer of ``window`` slots).
+
 MLA (DeepSeek-V2's multi-head latent attention) caches the compressed
 latent ``c`` ``[B, S, kv_lora]`` and the shared rope key ``k_rope`` ``[B,
 S, rope_d]``. Its prefill expands them to per-head keys and values and
@@ -42,7 +49,6 @@ from repro_torch.models.layers import (_normal, apply_norm, apply_rope,
                                        init_norm)
 
 NEG_INF = -1e30
-_LATER = "not ported yet: it comes with the slice of the families that use it"
 
 
 class GQA(nn.Module):
@@ -72,48 +78,66 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
-              theta: float, window: int = 0, cache: Optional[Dict] = None,
+              theta: float, causal: bool = True, window: int = 0,
+              rope: bool = True, cache: Optional[Dict] = None,
               cache_index: Optional[int] = None, cross_kv=None,
               attend: Callable = flash_attention):
-    """Causal GQA self-attention with RoPE.
+    """GQA attention, with RoPE on q and k unless ``rope=False``.
 
-    Full sequence (``cache is None``): ``attend(q, k, v, causal=True)``,
+    Full sequence (``cache is None``): ``attend(q, k, v, causal=causal)``,
     the kernel (prefill) or :func:`mea_attention` (the training objective,
-    whose gradient flows through it); returns ``(y, (k, v))`` with k, v
-    ``[B, Hkv, S, dh]``. Decode (``cache={"k", "v"}`` of ``[B, Hkv,
-    S_cache, dh]``, ``cache_index`` the new token's position): writes the
-    token's k/v into the cache in place and returns ``(y, cache)``.
+    whose gradient flows through it); ``window > 0`` (local attention)
+    attends through :func:`mea_attention`'s band instead, as the
+    reference's prefill does (the kernel has no band). Returns ``(y, (k,
+    v))`` with k, v ``[B, Hkv, S, dh]``. ``cross_kv``: an encoder's ``(k,
+    v)`` ``[B, Hkv, S_enc, dh]``, attended as they are (no RoPE on q, no
+    cache update). Decode (``cache={"k", "v"}`` of ``[B, Hkv, S_cache,
+    dh]``, ``cache_index`` the new token's position): writes the token's
+    k/v into the cache in place, at ``cache_index % S_cache`` for a window
+    (a ring buffer), and returns ``(y, cache)``.
     """
-    if window > 0:
-        raise NotImplementedError(
-            f"window > 0 (local attention of the hybrid family) is {_LATER}")
-    if cross_kv is not None:
-        raise NotImplementedError(
-            f"cross_kv (the audio_encdec family's cross-attention) is {_LATER}")
     dt = x.dtype
     q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
-    q = q.transpose(1, 2).contiguous()      # [B, H, S, dh]
-    k = k.transpose(1, 2).contiguous()
-    v = v.transpose(1, 2).contiguous()
-
-    if cache is not None:
-        # decode: s == 1; insert at cache_index
-        ck, cv = cache["k"], cache["v"]
-        ck[:, :, cache_index:cache_index + 1].copy_(k)
-        cv[:, :, cache_index:cache_index + 1].copy_(v)
-        out = _decode_attention(q, ck.to(dt), cv.to(dt), cache_index)
+    if cross_kv is not None:
+        k, v = cross_kv
     else:
-        out = attend(q, k, v, causal=True)
+        k = _project(x, p.wk)
+        v = _project(x, p.wv)
+        if rope:
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+        k = k.transpose(1, 2).contiguous()
+        v = v.transpose(1, 2).contiguous()
+    q = q.transpose(1, 2).contiguous()      # [B, H, S, dh]
+
+    if cache is not None and cross_kv is None:
+        # decode: s == 1; insert at cache_index (a ring buffer for a window)
+        ck, cv = cache["k"], cache["v"]
+        idx = cache_index % ck.shape[2] if window > 0 else cache_index
+        ck[:, :, idx:idx + 1].copy_(k)
+        cv[:, :, idx:idx + 1].copy_(v)
+        out = _decode_attention(q, ck.to(dt), cv.to(dt), cache_index, window)
+    elif cache is not None:
+        out = mea_attention(q, k, v, causal=False)
+    elif window > 0:
+        out = mea_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = attend(q, k, v, causal=causal)
     hq, dh, d = p.wo.shape
     y = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], hq * dh) @ \
         p.wo.to(dt).reshape(hq * dh, d)
     if cache is not None:
         return y, cache
     return y, (k, v)
+
+
+def encoder_kv(p: GQA, enc_out: torch.Tensor):
+    """The cross-attention's keys and values of an encoder's output
+    ``[B, S_enc, D]``: ``([B, Hkv, S_enc, dh], [B, Hkv, S_enc, dh])`` in
+    its dtype."""
+    k = _project(enc_out, p.wk).transpose(1, 2).contiguous()
+    v = _project(enc_out, p.wv).transpose(1, 2).contiguous()
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -256,16 +280,21 @@ def mea_attention_packed(q, k, v, *, block: int = 1024) -> torch.Tensor:
 
 
 def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      cache_index: int) -> torch.Tensor:
+                      cache_index: int, window: int = 0) -> torch.Tensor:
     """Single-token attention against a cache. q: ``[B, Hq, 1, d]``, k/v:
-    ``[B, Hkv, S, d]``; keys at positions ``<= cache_index`` count."""
+    ``[B, Hkv, S, d]``; keys at positions ``<= cache_index`` count (for a
+    window's ring buffer, the slots written so far)."""
     b, hq, _, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     g = hq // hkv
     qf = q.reshape(b, hkv, g, 1, d).float()
     scores = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
     scores = scores / (d ** 0.5)
-    valid = torch.arange(s, device=q.device) <= cache_index
+    kpos = torch.arange(s, device=q.device)
+    if window > 0:
+        valid = kpos < min(cache_index + 1, s)
+    else:
+        valid = kpos <= cache_index
     scores = scores.masked_fill(~valid, NEG_INF)
     pr = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", pr, v.float())

@@ -14,7 +14,11 @@ with each segment's leaves stacked over its ``n`` groups (a layer's keys
 are its kind's: ``moe`` {``router``, ``wi``, ``wg``, ``wo``} and
 ``shared`` for the MoE kinds, MLA's ``attn`` {``wq_a``, ``q_norm``,
 ``wq_b``, ``wkv_a``, ``kv_norm``, ``wk_rope``, ``wk_b``, ``wv_b``, ``wo``};
-deepseek-v2 has two segments), and returns the port's
+deepseek-v2 has two segments; the recurrent kinds' ``rec`` {``wx``,
+``wgate``, ``conv`` {``w``, ``b``}, ``wa``, ``wi``, ``lambda``, ``wo``}
+and ``block`` {``w_up``, ..., ``b_if``, ``o_norm``, ``w_down``}; whisper
+has ``enc_segments``, ``dec_segments`` (``cross`` beside ``attn``) and
+``enc_norm`` in place of ``segments``), and returns the port's
 :class:`repro_torch.models.lm.LM` holding the same numbers, so both
 packages compute the same function. A tree whose experts went through the
 JAX package's ``quantize_expert_weights`` (int8 ``wi`` / ``wg`` / ``wo``
@@ -34,14 +38,18 @@ from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.models.lm import LM, quantize_experts
 
 
+# the lists of stacked segments: whisper keeps its encoder's and decoder's
+_STACKS = ("segments", "enc_segments", "dec_segments")
+
+
 def _path(name: str) -> Tuple[tuple, Optional[int]]:
     """A parameter's place in the JAX tree: ``(path, group)``; ``group`` is
     its index in a segment's stacked leaves (``None`` outside segments).
     ``segments.0.3.0_dense.attn.wq`` -> ``(("segments", 0, "0_dense",
     "attn", "wq"), 3)``."""
     parts = name.split(".")
-    if parts[0] == "segments":
-        return ("segments", int(parts[1])) + tuple(parts[3:]), int(parts[2])
+    if parts[0] in _STACKS:
+        return (parts[0], int(parts[1])) + tuple(parts[3:]), int(parts[2])
     return tuple(parts), None
 
 
@@ -67,7 +75,7 @@ def jax_leaves(model: LM, tree: Mapping) -> List[np.ndarray]:
                                f"{_where(path, group)}") from None
         arr = np.asarray(node)
         if group is not None:
-            n = len(model.segments[path[1]])
+            n = len(getattr(model, path[0])[path[1]])
             if arr.shape[:1] != (n,):
                 raise ValueError(f"{_where(path, group)}: leading dim "
                                  f"{arr.shape[:1]}, the segment has {n} "

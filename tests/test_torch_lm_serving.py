@@ -20,6 +20,7 @@ import torch
 from repro.configs import get_arch as jax_get_arch
 from repro.launch.serve import serve_batch as jax_serve_batch
 from repro.models import attention as jax_attn
+from repro.models import blocks as jax_blocks
 from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
 from repro_torch.configs import ARCH_IDS, get_arch
@@ -174,13 +175,46 @@ def test_apply_gqa_decode_matches_jax():
 
 
 def test_apply_gqa_rejects_what_later_slices_port():
-    _, p = gqa_pair(d=48, h=3, hkv=1, dh=16)
-    x = torch.zeros((1, 4, 48))
-    pos = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="window"):
-        attention.apply_gqa(p, x, pos, theta=1e4, window=2)
-    with pytest.raises(NotImplementedError, match="cross_kv"):
-        attention.apply_gqa(p, x, pos, theta=1e4, cross_kv=(x, x))
+    """What apply_gqa refused before the recurrent and encoder families
+    were ported, it now computes as the JAX package does: ``window`` (a
+    band of 5 over 12 positions, and a decode into a ring of 5 slots),
+    ``causal=False`` without RoPE (an encoder) and ``cross_kv`` (an
+    encoder's keys and values, Sq != Skv)."""
+    tree, p = gqa_pair(d=48, h=3, hkv=1, dh=16)
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 12, 48)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(12, dtype=np.int32), (2, 12)).copy()
+    ck, cv = (rng.normal(size=(2, 1, 7, 16)).astype(np.float32)
+              for _ in range(2))
+    cases = [dict(window=5), dict(causal=False, rope=False),
+             dict(causal=False, rope=False, cross=True)]
+    for kw in cases:
+        cross = kw.pop("cross", False)
+        extra = {"cross_kv": (ck, cv)} if cross else {}
+        want_y, _ = jax_attn.apply_gqa(
+            tree, jnp.asarray(x), jnp.asarray(pos), theta=1e4, **kw,
+            **{k: tuple(map(jnp.asarray, v)) for k, v in extra.items()})
+        with torch.no_grad():
+            y, _ = attention.apply_gqa(
+                p, torch.from_numpy(x), torch.from_numpy(pos), theta=1e4,
+                **kw, **{k: tuple(map(torch.from_numpy, v))
+                         for k, v in extra.items()})
+        close(y, want_y, LAYER_TOL)
+    ring = rng.normal(size=(2, 1, 5, 16)).astype(np.float32)
+    want_y, want_c = jax_attn.apply_gqa(
+        tree, jnp.asarray(x[:, :1]), jnp.full((2, 1), 13, jnp.int32),
+        theta=1e4, window=5, cache={"k": jnp.asarray(ring),
+                                    "v": jnp.asarray(ring)},
+        cache_index=jnp.int32(13))
+    cache = {"k": torch.from_numpy(ring.copy()),
+             "v": torch.from_numpy(ring.copy())}
+    with torch.no_grad():
+        y, new = attention.apply_gqa(
+            p, torch.from_numpy(x[:, :1]), torch.full((2, 1), 13), theta=1e4,
+            window=5, cache=cache, cache_index=13)
+    close(y, want_y, LAYER_TOL)
+    close(new["k"], want_c["k"], LAYER_TOL)
+    assert not torch.equal(new["k"][:, :, 3], torch.from_numpy(ring[:, :, 3]))
 
 
 # ---------------------------------------------------------------------------
@@ -323,19 +357,43 @@ def test_params_from_jax_rejects_a_tree_that_does_not_fit():
         tree["segments"][0]["0_dense"]["attn"]["wq"][:1]
     with pytest.raises(ValueError, match="groups"):
         params_from_jax(tree, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="family"):
-        lm.init_params(dataclasses.replace(cfg, family="hybrid"),
+    with pytest.raises(ValueError, match="nonesuch"):
+        lm.init_params(dataclasses.replace(cfg, family="nonesuch"),
                        device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["rec", "mlstm", "slstm", "lattn", "enc",
                                   "dec"])
 def test_unported_layer_kinds_raise(kind):
-    cfg = get_arch("smollm-135m", True)
-    with pytest.raises(NotImplementedError, match=f"kind {kind!r}"):
-        blocks.init_layer(torch.Generator(), cfg, kind)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        blocks.init_layer_cache(cfg, kind, 1, 4, torch.float32)
+    """The kinds a later slice was to port are ported now: each builds the
+    JAX package's leaves and empty cache from a config of its family (an
+    enc layer has none, in both), and a kind neither package has
+    raises."""
+    arch = {"rec": "recurrentgemma-9b", "mlstm": "xlstm-1.3b",
+            "slstm": "xlstm-1.3b", "lattn": "recurrentgemma-9b",
+            "enc": "whisper-tiny", "dec": "whisper-tiny"}[kind]
+    cfg, jcfg = get_arch(arch, True), jax_get_arch(arch, True)
+    want = jax_blocks.init_layer(jax.random.PRNGKey(0), jcfg, kind)
+    got = blocks.init_layer(torch.Generator(), cfg, kind)
+    shapes = {n: tuple(t.shape) for n, t in got.named_parameters()}
+    assert shapes == {
+        ".".join(k.key for k in path): tuple(leaf.shape)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]}
+    with pytest.raises(ValueError, match="kind 'nonesuch'"):
+        blocks.init_layer(torch.Generator(), cfg, "nonesuch")
+    if kind == "enc":          # the encoder runs once, in prefill
+        with pytest.raises(ValueError):
+            jax_blocks.init_layer_cache(jcfg, kind, 1, 4, jnp.float32)
+        with pytest.raises(ValueError, match="no decode cache"):
+            blocks.init_layer_cache(cfg, kind, 1, 4, torch.float32)
+        return
+    want_c = jax_blocks.init_layer_cache(jcfg, kind, 1, 4, jnp.float32,
+                                         enc_len=3)
+    got_c = blocks.init_layer_cache(cfg, kind, 1, 4, torch.float32,
+                                    enc_len=3)
+    assert sorted(got_c) == sorted(want_c)
+    for name, leaf in want_c.items():
+        np.testing.assert_array_equal(got_c[name].numpy(), np.asarray(leaf))
 
 
 def test_registered_configs_are_the_jax_packages():
