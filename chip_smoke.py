@@ -200,6 +200,23 @@
    reads its metrics on the first 4,000 generated rows (as many as are
    held out), and leaves out coverage (an O(n^2) host k-NN at p=368).
 
+13. The LM scale-out plane (``drive_scaleout_plane``). (a) The dry run:
+   ``python -m repro_torch.launch.dryrun`` traces smollm-135m x {train_4k,
+   prefill_32k, decode_32k} and the caloforest photons slice on the 16x16
+   fake mesh of 256 ranks, fake tensors on ``cuda``; one process a cell,
+   started before the first phase (niced, one thread each: CPU work beside
+   the card's phases) and collected here; each must be ``ok``; their
+   per-rank peaks, collectives and rooflines are printed. (b) On the card:
+   a one-rank NCCL group and ``make_debug_mesh(1, 1)``; smollm-135m at
+   full width with seeded weights, saved unsharded, restored and resharded
+   by the rules (``checkpoint.reshard``, ``load_sharded``); bf16 and fp32
+   prefills of 8 x 2,048 through the DTensor model, ``flash_attention``
+   under the per-rank attention at 30 launches a prefill, logits within
+   1e-6 of the largest of the unsharded prefill on the card; one training
+   step (bf16, remat full, AdamW) whose loss equals the unsharded model's.
+   (c) The model-FLOPs share of phase 10b's bf16 training step:
+   ``cell_cost``'s ``model_flops`` over (seconds a step x 989e12).
+
 Exits non-zero on any failure and when no CUDA device is present. The line
 before the last is a JSON object with the kernels' numbers; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -212,6 +229,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -221,9 +239,13 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+# H100 SXM peaks (NVIDIA's data sheet), the port's cost model's
+from repro_torch.analysis.flops import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.analysis.flops import PEAK_FLOPS as BF16_OPS_PER_S  # noqa: E402,E501
+from repro_torch.analysis.flops import PEAK_FLOPS_FP32 as FP32_OPS_PER_S  # noqa: E402,E501
+
 KERNEL_TOL = 0.0              # kernel and plain version sum in the same order
 # hist vs the plain version on the card, whose index_add_ adds with float
 # atomics in another order: relative to each cell's sum of |g·w|
@@ -3627,12 +3649,236 @@ def flash_phase(device):
     return worst, timing, moe_timing
 
 
+# ---------------------------------------------------------------------------
+# the LM scale-out plane
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("smollm-135m", "train_4k"), ("smollm-135m", "prefill_32k"),
+                ("smollm-135m", "decode_32k"), ("caloforest", "photons"))
+# the card's sharded prefills: 8 prompts of 2,048 tokens
+SCALE_B, SCALE_S = 8, 2048
+_CHILDREN = []
+
+
+def start_dryrun(out_dir, fake_device="cuda", cells=DRYRUN_CELLS):
+    """Phase 13 (a)'s dry-run cells, one process each, niced and on one
+    thread: they trace on the CPU while the card's phases run."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p]))
+    procs = []
+    for arch, shape in cells:
+        log_path = os.path.join(out_dir, f"{arch}_{shape}.log")
+        with open(log_path, "w") as fh:
+            procs.append((arch, shape, log_path, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 arch, "--shape", shape, "--mesh", "single", "--fake-device",
+                 fake_device, "--out", out_dir], env=env, stdout=fh,
+                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))))
+    _CHILDREN.extend(p for *_, p in procs)
+    return procs, time.perf_counter()
+
+
+def stop_children() -> None:
+    """Ends every process this script started and left running."""
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def finish_dryrun(procs, t_start, out_dir):
+    """Waits for phase 13 (a)'s cells; each must be ``ok``. Returns their
+    records' numbers."""
+    out = {}
+    for arch, shape, log_path, p in procs:
+        rc = p.wait(timeout=600)
+        with open(log_path) as fh:
+            tail = fh.read()[-3000:]
+        path = os.path.join(out_dir, f"{arch}_{shape}_single.json")
+        if rc != 0 or not os.path.exists(path):
+            raise AssertionError(f"dry run {arch} x {shape}: exit {rc}\n{tail}")
+        with open(path) as fh:
+            rec = json.load(fh)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dry run {arch} x {shape}: {rec['status']} "
+                                 f"{rec.get('error')}")
+        mem, roof = rec["memory_analysis"], rec["roofline"]
+        out[f"{arch} {shape}"] = cell = {
+            "trace_s": rec["compile_s"], "chips": rec["chips"],
+            "peak_bytes_per_rank": mem["peak_bytes_per_device"],
+            "analytic_bytes_per_rank": mem.get("analytic_per_chip_bytes"),
+            "collectives": rec["collective_inventory"],
+            "traced_flops": rec["cost_analysis_raw"]["flops"],
+            "analytic_flops": rec["analytic"]["total_flops"],
+            "roofline": roof}
+        log(f"dry run {arch} x {shape} x {rec['mesh']} ({rec['chips']} fake "
+            f"ranks): ok in {rec['compile_s']!r} s; per-rank peak "
+            f"{mem['peak_bytes_per_device']} bytes (analytic "
+            f"{cell['analytic_bytes_per_rank']}); collectives "
+            f"{rec['collective_inventory']}; traced FLOPs "
+            f"{cell['traced_flops']!r} (analytic {cell['analytic_flops']!r});"
+            f" roofline dominant {roof['dominant']}, mfu_bound "
+            f"{roof['mfu_bound']!r}")
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def drive_scaleout_plane(device, tmp, dry, bf16_step_s):
+    """Phase 13 (b) and (c); (a)'s cells are collected first. Returns the
+    numbers and the sharded prefills' flash_attention launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.analysis import flops as fl
+    from repro_torch.config import ShapeConfig, TrainConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import FastTokenStream
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.convert import jax_leaves, params_to_jax
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.dtensor import Layout, load_sharded
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optim import adamw_update, init_opt_state
+
+    t_phase = time.perf_counter()
+    out = {"dryrun": finish_dryrun(*dry)}
+    cfg = get_arch("smollm-135m")
+    base = lm.init_params(cfg, device=device, seed=0)
+    ckpt_dir = os.path.join(tmp, "scale_ckpt")
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, 0, params_to_jax(base))
+    out["save_s"] = time.perf_counter() - t0
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1, device)
+        dp, tp = rules.axes_for_mesh(False)
+        model = lm.init_params(cfg, device="meta")
+        t0 = time.perf_counter()
+        tree, _ = ckpt.restore(ckpt_dir, params_to_jax(base))
+        host = dict(zip([n for n, _ in model.named_parameters()],
+                        jax_leaves(model, tree)))
+        specs = rules.param_specs(model, cfg, dp, tp, 1, 1)
+        load_sharded(model, ckpt.reshard(host, mesh, specs), Layout(mesh, dp))
+        sync(device)
+        out["restore_reshard_s"] = time.perf_counter() - t0
+        for (name, p), q in zip(model.named_parameters(), base.parameters()):
+            if not torch.equal(p.to_local(), q):
+                raise AssertionError(f"resharded {name} != the saved weights")
+        gen = torch.Generator(device=device).manual_seed(3)
+        prompts = torch.randint(0, cfg.vocab, (SCALE_B, SCALE_S),
+                                generator=gen, device=device,
+                                dtype=torch.int32)
+        launches = 0
+        for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            want, _ = lm.prefill_step(base, {"tokens": prompts}, cfg,
+                                      dtype=dtype)
+            lm.prefill_step(model, {"tokens": prompts}, cfg, dtype=dtype)
+            sync(device)
+            t0 = time.perf_counter()
+            want, _ = lm.prefill_step(base, {"tokens": prompts}, cfg,
+                                      dtype=dtype)
+            sync(device)
+            plain_s = time.perf_counter() - t0
+            flash_attention.launches = 0
+            t0 = time.perf_counter()
+            got, _ = lm.prefill_step(model, {"tokens": prompts}, cfg,
+                                     dtype=dtype)
+            sync(device)
+            shard_s = time.perf_counter() - t0
+            n = flash_attention.launches
+            launches += n
+            if device.type == "cuda" and n != cfg.n_layers:
+                raise AssertionError(f"sharded {name} prefill: {n} "
+                                     f"flash_attention launches, expected "
+                                     f"{cfg.n_layers}")
+            got = got.full_tensor()
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            if not err <= 1e-6:
+                raise AssertionError(f"sharded {name} prefill: logits "
+                                     f"{err!r} of the largest from the "
+                                     "unsharded prefill's")
+            out[name] = {"prefill_s": shard_s, "unsharded_prefill_s": plain_s,
+                         "logits_err": err, "flash_launches": n}
+            log(f"sharded smollm-135m prefill {name}, B={SCALE_B}, "
+                f"S={SCALE_S} on the 1x1 mesh: {shard_s!r} s (unsharded "
+                f"{plain_s!r} s), {n} flash_attention launches, logits "
+                f"{err!r} of the largest from the unsharded prefill's")
+            del want, got
+            torch.cuda.empty_cache()
+
+        # one training step, sharded and unsharded, from the same weights
+        stream = FastTokenStream(cfg.vocab, TRAIN_S, TRAIN_B, seed=0)
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in stream.batch_at(0).items()}
+        tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1,
+                           total_steps=2, remat_policy="full")
+
+        def step(m):
+            params = list(m.parameters())
+            opt = init_opt_state(params)
+            t0 = time.perf_counter()
+            loss, _ = lm.loss_fn(m, batch, cfg, dtype=torch.bfloat16,
+                                 remat_policy="full")
+            with implicit_replication():
+                grads = torch.autograd.grad(loss, params)
+                new, _, _ = adamw_update(grads, opt, params, tcfg)
+            sync(device)
+            return loss.detach(), new, time.perf_counter() - t0
+
+        want_loss, want_new, plain_s = step(base)
+        got_loss, got_new, shard_s = step(model)
+        got_loss = got_loss.full_tensor()
+        if not torch.equal(got_loss, want_loss):
+            raise AssertionError(f"sharded training step: loss "
+                                 f"{got_loss.item()!r}, unsharded "
+                                 f"{want_loss.item()!r}")
+        step_err = max(((a.full_tensor() - b).abs().max()
+                        / b.abs().max().clamp(min=1e-30)).item()
+                       for a, b in zip(got_new, want_new))
+        out["train_step"] = {"loss": want_loss.item(), "step_s": shard_s,
+                             "unsharded_step_s": plain_s,
+                             "params_err": step_err}
+        log(f"sharded training step (bf16, remat full, AdamW): loss "
+            f"{got_loss.item()!r} equal to the unsharded step's; {shard_s!r} "
+            f"s (unsharded {plain_s!r} s, both the first of their run); "
+            f"updated weights within {step_err!r} of each leaf's largest")
+        del base, model, got_new, want_new
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (c) the model-FLOPs share of phase 10b's measured bf16 step
+    cost = fl.cell_cost(cfg, ShapeConfig("train_8x2048", TRAIN_S, TRAIN_B,
+                                         "train"), chips=1, dp_size=1,
+                        tp_size=1)
+    mfu = cost.model_flops / (bf16_step_s * fl.PEAK_FLOPS)
+    out["mfu"] = {"model_flops": cost.model_flops, "step_s": bf16_step_s,
+                  "share": mfu, "card": card_line()}
+    log(f"smollm-135m training, bf16, B={TRAIN_B}, S={TRAIN_S}: model FLOPs "
+        f"{cost.model_flops!r} a step in {bf16_step_s!r} s = {mfu!r} of "
+        f"989e12 FLOP/s ({out['mfu']['card']})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"scale-out plane phase: {out['phase_s']!r} s (the dry-run cells "
+        f"took {out['dryrun']['wall_s']!r} s from their start)")
+    return launches, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                    "src"))
+    try:
+        return _main()
+    finally:
+        stop_children()
+
+
+def _main() -> int:
     from repro_torch.config import ForestConfig
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -3643,6 +3889,8 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     log(card)
+    dry_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dry = start_dryrun(dry_dir) + (dry_dir,)
 
     t0 = time.perf_counter()
     built = build.build(["tree_predict", "hist", "flash_attention"])
@@ -3775,6 +4023,19 @@ def main() -> int:
         "subprocesses")
     torch.cuda.empty_cache()
 
+    # -- the LM scale-out plane -----------------------------------------------
+    forest_predict.launches = histogram.launches = flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        scale_launches_fa, scaleout_plane = drive_scaleout_plane(
+            device, tmp, dry, 1.0 / lm_training["bf16"]["steps_per_s"])
+    launched = (forest_predict.launches, histogram.launches)
+    if any(launched):
+        raise AssertionError(f"scale-out plane: tree_predict and hist "
+                             f"launched {launched}")
+    fa_launches += scale_launches_fa
+    shutil.rmtree(dry[2], ignore_errors=True)
+    torch.cuda.empty_cache()
+
     check_small(device)
     check_training_small(device)
     check_serving_small(device)
@@ -3834,7 +4095,8 @@ def main() -> int:
                           forest_serving, tree_predict_launches=fs_tp,
                           hist_launches=fs_hist),
                       "sharded": dict(sharded, tree_predict_launches=sh_tp),
-                      "comparison": comparison}))
+                      "comparison": comparison,
+                      "scaleout_plane": scaleout_plane}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,6 +3,9 @@
 * :class:`ArchConfig` — an LM-family transformer architecture, a
   field-for-field copy of ``repro.config.ArchConfig`` (the port serves the
   ``dense``, ``moe`` and ``mla_moe`` families so far).
+* :class:`ShapeConfig`, :data:`LM_SHAPES`, :data:`SHAPES_BY_NAME` and
+  :func:`shape_applicable` — the LM cells (input shape × step) of the dry
+  run, copies of ``repro.config``'s.
 * :class:`TrainConfig` — optimizer knobs (AdamW, its warmup-cosine
   schedule, gradient clipping), a field-for-field copy of
   ``repro.config.TrainConfig``, with the same defaults.
@@ -27,7 +30,7 @@ steer the JAX package's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +87,41 @@ class ArchConfig:
     @property
     def q_per_kv(self) -> int:
         return max(1, self.n_heads // max(1, self.n_kv_heads))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell: seq_len x global_batch and which step runs."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# The four LM shapes assigned to every architecture.
+LM_SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME: Dict[str, ShapeConfig] = {s.name: s for s in LM_SHAPES}
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell is runnable; the reason if not.
+
+    ``long_500k`` needs sub-quadratic attention: only the SSM / hybrid
+    archs qualify. Every arch has a decoder, so decode shapes always
+    apply."""
+    if shape.name == "long_500k" and not arch.sub_quadratic:
+        return False, (
+            "skipped: full-attention arch; 524288-token KV/attention is "
+            "quadratic (documented in DESIGN.md)"
+        )
+    return True, ""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -130,14 +130,24 @@ def fit_boosted(codes, tgt, w, edges_sentinel, val_codes, val_tgt, val_w,
         r = best_r + 1
         best_loss = torch.gather(vcurve, 1, best_r[:, None])[:, 0]
     patience = torch.zeros((S,), dtype=torch.long, device=dev)
+    # without early stopping or a warm start every lane runs rounds 0 … T-1
+    # together: no per-round look at which lanes are still active
+    static = es == 0 and warm is None
+    rounds = 0
 
     while True:
-        active = r < T
-        if es > 0:
-            active &= patience < es
-        lanes = active.nonzero()[:, 0]
-        if lanes.numel() == 0:
-            break
+        if static:
+            if rounds == T:
+                break
+            rounds += 1
+            lanes = torch.arange(S, device=dev)
+        else:
+            active = r < T
+            if es > 0:
+                active &= patience < es
+            lanes = active.nonzero()[:, 0]
+            if lanes.numel() == 0:
+                break
         rl = r[lanes]
         tree, node_id = grow_tree(
             codes, pred[lanes] - tgt[lanes], w, edges_sentinel, depth=depth,

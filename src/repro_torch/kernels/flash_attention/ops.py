@@ -7,6 +7,12 @@ version (:mod:`.ref`); on a CUDA device it launches the hand-written kernel
 raises. bfloat16 runs on the tensor cores (``wgmma`` fed by TMA,
 ``csrc/flash_attention_bf16.cuh``); float32 on the CUDA cores. ``flash_attention.launches`` counts kernel launches, so a run can
 show that its main path went through the kernel.
+
+The work is the operator ``repro_torch::flash_attention``
+(``torch.library.custom_op``), so a fake tensor (``FakeTensorMode``, the
+dry run's traced steps) or a ``meta`` tensor is answered from its shape
+and dtype alone (``register_fake``), with no library built and no launch;
+a real tensor still takes its device's path.
 """
 from __future__ import annotations
 
@@ -72,6 +78,14 @@ def flash_attention(q, k, v, causal: bool = True):
         raise ValueError("flash_attention has no backward: its inputs "
                          "require grad (train through "
                          "repro_torch.models.attention.mea_attention)")
+    return _flash_attention_op(q, k, v, bool(causal))
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    """:func:`flash_attention` on checked inputs: the plain version for a
+    CPU tensor, the kernel for a CUDA tensor."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal)
     if q.device.type != "cuda":
@@ -93,6 +107,11 @@ def flash_attention(q, k, v, causal: bool = True):
     check_launch("flash_attention", rc)
     count_launch(flash_attention)
     return o
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal):
+    return torch.empty_like(q)
 
 
 flash_attention.launches = 0

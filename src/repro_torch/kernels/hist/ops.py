@@ -5,7 +5,10 @@ version (:mod:`.ref`); on a CUDA device it launches the hand-written kernel
 (``csrc/hist.cu``, built at first use by :mod:`repro_torch.kernels.build`)
 on the current stream, without a sync, or raises. ``histogram.launches``
 counts kernel launches, so a run can show that its main path went through
-the kernel.
+the kernel. The work is the operator ``repro_torch::histogram``
+(``torch.library.custom_op``): a fake or ``meta`` tensor (the dry run's
+traced forest slice) is answered from the shapes alone, with no library
+built and no launch.
 
 Before the launch the wrapper lays each lane's rows out by node
 (:func:`node_layout`: stably, so rows keep their order inside a node, each
@@ -300,6 +303,15 @@ def histogram(codes, node_id, g, w, n_nodes: int, n_bins: int):
     output, ``S = p, out = 1``.
     """
     _check(codes, node_id, g, w, n_nodes, n_bins)
+    return _histogram_op(codes, node_id, g, w, n_nodes, n_bins)
+
+
+@torch.library.custom_op("repro_torch::histogram", mutates_args=())
+def _histogram_op(codes: torch.Tensor, node_id: torch.Tensor,
+                  g: torch.Tensor, w: torch.Tensor, n_nodes: int,
+                  n_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`histogram` on checked inputs: the plain version for a CPU
+    tensor, the kernel for a CUDA tensor."""
     if g.device.type == "cpu":
         return histogram_ref(codes, node_id, g, w, n_nodes, n_bins)
     if g.device.type != "cuda":
@@ -308,6 +320,13 @@ def histogram(codes, node_id, g, w, n_nodes: int, n_bins: int):
     from repro_torch.kernels.build import count_launch
     count_launch(histogram)
     return out
+
+
+@_histogram_op.register_fake
+def _histogram_fake(codes, node_id, g, w, n_nodes, n_bins):
+    S, p, out = node_id.shape[0], codes.shape[1], g.shape[2]
+    return (g.new_empty((S, n_nodes, p, n_bins, out)),
+            g.new_empty((S, n_nodes, p, n_bins)))
 
 
 histogram.launches = 0

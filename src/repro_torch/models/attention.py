@@ -37,6 +37,7 @@ plain PyTorch, expanded or with the absorbed projections.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -73,15 +74,32 @@ def init_gqa(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x ``[B, S, D]`` · w ``[D, H, dh]`` -> ``[B, S, H, dh]``."""
     d, h, dh = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * dh)).reshape(
-        x.shape[0], x.shape[1], h, dh)
+    return (x @ w.to(x.dtype).reshape(d, h * dh)).unflatten(-1, (h, dh))
+
+
+class _Heads(torch.autograd.Function):
+    """``[B, S, H, dh]`` -> ``[B, H, S, dh]``, contiguous; its backward
+    gives a contiguous gradient too (a DTensor's local gradient would stay
+    transposed, and its view ops refuse such a tensor)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.transpose(1, 2).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.transpose(1, 2).clone(memory_format=torch.contiguous_format)
+
+
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    return _Heads.apply(x)
 
 
 def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
               theta: float, causal: bool = True, window: int = 0,
               rope: bool = True, cache: Optional[Dict] = None,
               cache_index: Optional[int] = None, cross_kv=None,
-              attend: Callable = flash_attention):
+              attend: Callable = flash_attention, layout=None):
     """GQA attention, with RoPE on q and k unless ``rope=False``.
 
     Full sequence (``cache is None``): ``attend(q, k, v, causal=causal)``,
@@ -94,7 +112,8 @@ def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
     cache update). Decode (``cache={"k", "v"}`` of ``[B, Hkv, S_cache,
     dh]``, ``cache_index`` the new token's position): writes the token's
     k/v into the cache in place, at ``cache_index % S_cache`` for a window
-    (a ring buffer), and returns ``(y, cache)``.
+    (a ring buffer), and returns ``(y, cache)``. ``layout``: a mesh's
+    :class:`~repro_torch.sharding.dtensor.Layout`, for DTensor caches.
     """
     dt = x.dtype
     q = _project(x, p.wq)
@@ -106,17 +125,25 @@ def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
         if rope:
             q = apply_rope(q, positions, theta)
             k = apply_rope(k, positions, theta)
-        k = k.transpose(1, 2).contiguous()
-        v = v.transpose(1, 2).contiguous()
-    q = q.transpose(1, 2).contiguous()      # [B, H, S, dh]
+        k = _heads(k)
+        v = _heads(v)
+    q = _heads(q)                           # [B, H, S, dh]
 
     if cache is not None and cross_kv is None:
         # decode: s == 1; insert at cache_index (a ring buffer for a window)
         ck, cv = cache["k"], cache["v"]
         idx = cache_index % ck.shape[2] if window > 0 else cache_index
-        ck[:, :, idx:idx + 1].copy_(k)
-        cv[:, :, idx:idx + 1].copy_(v)
-        out = _decode_attention(q, ck.to(dt), cv.to(dt), cache_index, window)
+        _write(layout, ck, 2, idx, k)
+        _write(layout, cv, 2, idx, v)
+        if layout is None:
+            out = _decode_attention(q, ck.to(dt), cv.to(dt),
+                                    cache_index=cache_index, window=window)
+        else:
+            out = layout.decode_attend(
+                _decode_scores, functools.partial(
+                    _decode_finish, d=q.shape[-1], dtype=dt,
+                    cache_index=cache_index, window=window),
+                q, ck.to(dt), cv.to(dt))
     elif cache is not None:
         out = mea_attention(q, k, v, causal=False)
     elif window > 0:
@@ -131,12 +158,22 @@ def apply_gqa(p: GQA, x: torch.Tensor, positions: torch.Tensor, *,
     return y, (k, v)
 
 
+def _write(layout, t: torch.Tensor, dim: int, start: int,
+           new: torch.Tensor) -> None:
+    """A decode cache's positions from ``start`` along ``dim`` = ``new``,
+    in place (on a mesh, each rank writes its shard's part)."""
+    if layout is None:
+        t.narrow(dim, start, new.shape[dim]).copy_(new)
+    else:
+        layout.cache_write(t, dim, start, new)
+
+
 def encoder_kv(p: GQA, enc_out: torch.Tensor):
     """The cross-attention's keys and values of an encoder's output
     ``[B, S_enc, D]``: ``([B, Hkv, S_enc, dh], [B, Hkv, S_enc, dh])`` in
     its dtype."""
-    k = _project(enc_out, p.wk).transpose(1, 2).contiguous()
-    v = _project(enc_out, p.wv).transpose(1, 2).contiguous()
+    k = _heads(_project(enc_out, p.wk))
+    v = _heads(_project(enc_out, p.wv))
     return k, v
 
 
@@ -279,18 +316,23 @@ def mea_attention_packed(q, k, v, *, block: int = 1024) -> torch.Tensor:
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
-def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      cache_index: int, window: int = 0) -> torch.Tensor:
-    """Single-token attention against a cache. q: ``[B, Hq, 1, d]``, k/v:
-    ``[B, Hkv, S, d]``; keys at positions ``<= cache_index`` count (for a
-    window's ring buffer, the slots written so far)."""
+def _decode_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q ``[B, Hq, 1, d]`` · k ``[B, Hkv, S, d]`` -> ``[B, Hkv, G, 1, S]``
+    fp32, unscaled (a sum over d: over a shard of d, a part of it)."""
     b, hq, _, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    g = hq // hkv
-    qf = q.reshape(b, hkv, g, 1, d).float()
-    scores = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+    hkv = k.shape[1]
+    qf = q.reshape(b, hkv, hq // hkv, 1, d).float()
+    return torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float())
+
+
+def _decode_finish(scores: torch.Tensor, v: torch.Tensor, *, d: int, dtype,
+                   cache_index: int, window: int = 0) -> torch.Tensor:
+    """The rest of :func:`_decode_attention` from its scores: scale by
+    ``d`` (the full head width), mask, softmax, ``· v`` -> ``[B, Hq, 1,
+    dv]`` in ``dtype``."""
+    b, hkv, g, _, s = scores.shape
     scores = scores / (d ** 0.5)
-    kpos = torch.arange(s, device=q.device)
+    kpos = torch.arange(s, device=scores.device)
     if window > 0:
         valid = kpos < min(cache_index + 1, s)
     else:
@@ -298,7 +340,17 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~valid, NEG_INF)
     pr = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", pr, v.float())
-    return out.reshape(b, hq, 1, d).to(q.dtype)
+    return out.reshape(b, hkv * g, 1, v.shape[-1]).to(dtype)
+
+
+def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      cache_index: int, window: int = 0) -> torch.Tensor:
+    """Single-token attention against a cache. q: ``[B, Hq, 1, d]``, k/v:
+    ``[B, Hkv, S, d]``; keys at positions ``<= cache_index`` count (for a
+    window's ring buffer, the slots written so far)."""
+    return _decode_finish(_decode_scores(q, k), v, d=q.shape[-1],
+                          dtype=q.dtype, cache_index=cache_index,
+                          window=window)
 
 
 def make_kv_cache(batch: int, n_kv: int, size: int, d_head: int, dtype,
@@ -347,7 +399,8 @@ def init_mla(gen: torch.Generator, cfg, device=None,
 
 def apply_mla(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg, *,
               cache: Optional[Dict] = None, cache_index: Optional[int] = None,
-              absorb: bool = False, attend: Callable = flash_attention):
+              absorb: bool = False, attend: Callable = flash_attention,
+              layout=None):
     """MLA self-attention, causal, RoPE on the rope part of q and k.
 
     Full sequence (``cache is None``): ``attend(q, k, v, causal=True)`` at
@@ -376,28 +429,14 @@ def apply_mla(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg, *,
     wk_b, wv_b = p.wk_b.to(dt), p.wv_b.to(dt)
 
     if cache is not None:
-        cache["c"][:, cache_index:cache_index + s].copy_(c)
-        cache["k_rope"][:, cache_index:cache_index + s].copy_(k_rope)
-        c_all, kr_all = cache["c"].to(dt), cache["k_rope"].to(dt)
-        valid = torch.arange(c_all.shape[1], device=x.device) <= cache_index
-        scale = (nope + rope_d) ** 0.5
-        s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr_all)
-        if absorb:
-            # q_nope·(wk_b c) = (wk_b^T q_nope)·c: the latent side is smaller
-            q_eff = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)
-            s_nope = torch.einsum("bshr,btr->bhst", q_eff, c_all)
-        else:
-            k_nope = torch.einsum("btr,rhk->bthk", c_all, wk_b)
-            s_nope = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
-        scores = (s_nope + s_rope).float() / scale
-        scores = scores.masked_fill(~valid, NEG_INF)
-        w = torch.softmax(scores, dim=-1).to(dt)
-        if absorb:
-            ctx = torch.einsum("bhst,btr->bshr", w, c_all)
-            out = torch.einsum("bshr,rhv->bshv", ctx, wv_b)
-        else:
-            vv = torch.einsum("btr,rhv->bthv", c_all, wv_b)
-            out = torch.einsum("bhst,bthv->bshv", w, vv)
+        _write(layout, cache["c"], 1, cache_index, c)
+        _write(layout, cache["k_rope"], 1, cache_index, k_rope)
+        args = (q_nope, q_rope, cache["c"].to(dt), cache["k_rope"].to(dt),
+                wk_b, wv_b)
+        kw = dict(cache_index=cache_index, absorb=absorb,
+                  scale=(nope + rope_d) ** 0.5)
+        out = (_mla_decode(*args, **kw) if layout is None
+               else _mla_decode_sharded(layout, args, **kw))
     else:
         # prefill / training: expand k and v, attend at width nope + rope
         k_nope = torch.einsum("bsr,rhk->bshk", c, wk_b)
@@ -411,17 +450,108 @@ def apply_mla(p: MLA, x: torch.Tensor, positions: torch.Tensor, cfg, *,
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         if dk != width:
             q_full = q_full * (dk / width) ** 0.5
-        q_full = F.pad(q_full, (0, dk - width)).transpose(1, 2)
-        k_full = F.pad(torch.cat([k_nope, k_rope_b], dim=-1),
-                       (0, dk - width)).transpose(1, 2)
-        v_pad = F.pad(v, (0, dk - vd)).transpose(1, 2)
-        out = attend(q_full.contiguous(), k_full.contiguous(),
-                     v_pad.contiguous(), causal=True)
+        q_full = _heads(F.pad(q_full, (0, dk - width)))
+        k_full = _heads(F.pad(torch.cat([k_nope, k_rope_b], dim=-1),
+                              (0, dk - width)))
+        v_pad = _heads(F.pad(v, (0, dk - vd)))
+        out = attend(q_full, k_full, v_pad, causal=True)
         out = out.transpose(1, 2)[..., :vd]
     y = out.reshape(b, s, h * vd) @ p.wo.to(dt).reshape(h * vd, -1)
     if cache is not None:
         return y, cache
     return y, (c, k_rope)
+
+
+def _mla_scores(q_nope, q_rope, c_all, kr_all, wk_b, *, absorb: bool,
+                scale: float, cache_index: int, first: int = 0):
+    """MLA decode's scores ``[B, H, s, T]`` fp32 against the latent cache
+    ``c_all`` ``[B, T, kv_lora]`` and rope keys ``kr_all``, scaled, the
+    positions past ``cache_index`` masked (``first``: the position of
+    ``c_all``'s first row)."""
+    s_rope = torch.einsum("bshk,btk->bhst", q_rope, kr_all)
+    if absorb:
+        # q_nope·(wk_b c) = (wk_b^T q_nope)·c: the latent side is smaller
+        q_eff = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)
+        s_nope = torch.einsum("bshr,btr->bhst", q_eff, c_all)
+    else:
+        k_nope = torch.einsum("btr,rhk->bthk", c_all, wk_b)
+        s_nope = torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+    scores = (s_nope + s_rope).float() / scale
+    pos = first + torch.arange(c_all.shape[1], device=c_all.device)
+    return scores.masked_fill(~(pos <= cache_index), NEG_INF)
+
+
+def _mla_values(w, c_all, wv_b, *, absorb: bool):
+    """Weights ``w`` ``[B, H, s, T]`` (in the compute dtype) over the
+    latent cache -> ``[B, s, H, v]``."""
+    if absorb:
+        ctx = torch.einsum("bhst,btr->bshr", w, c_all)
+        return torch.einsum("bshr,rhv->bshv", ctx, wv_b)
+    vv = torch.einsum("btr,rhv->bthv", c_all, wv_b)
+    return torch.einsum("bhst,bthv->bshv", w, vv)
+
+
+def _mla_decode(q_nope, q_rope, c_all, kr_all, wk_b, wv_b, *,
+                cache_index: int, absorb: bool, scale: float):
+    """MLA's decode attention against the latent cache ``c_all`` ``[B, S,
+    kv_lora]`` and rope keys ``kr_all``: positions ``<= cache_index``
+    count. Returns ``[B, s, H, v]``."""
+    scores = _mla_scores(q_nope, q_rope, c_all, kr_all, wk_b, absorb=absorb,
+                         scale=scale, cache_index=cache_index)
+    w = torch.softmax(scores, dim=-1).to(q_nope.dtype)
+    return _mla_values(w, c_all, wv_b, absorb=absorb)
+
+
+def _mla_decode_sharded(layout, args, *, cache_index: int, absorb: bool,
+                        scale: float):
+    """:func:`_mla_decode` on a mesh. A latent cache with its positions on
+    tp (the rules' choice) stays where it is: each rank scores the
+    positions it holds for every head, and the softmax is put together
+    from the ranks' row maxima, exp-sums and weighted values (the
+    flash-decoding combine), so only ``[B, H]``-sized statistics and the
+    ``[B, s, H, v]`` output cross tp. Otherwise the cache is gathered over
+    tp and each rank takes its batch rows and (where they divide) its
+    heads."""
+    from torch.distributed.tensor import Shard
+    q_nope, q_rope, c_all, kr_all, wk_b, wv_b = args
+    b, h = q_nope.shape[0], q_nope.shape[2]
+    rows = 0 if layout.batch_sharded(b) else None
+    on_tp = [p for n, p in zip(layout.names, c_all.placements)
+             if n == layout.tp]
+    if not (on_tp and isinstance(on_tp[0], Shard) and on_tp[0].dim == 1):
+        heads = h % layout.tp_size == 0
+        qp = layout.pl(rows, 2 if heads else None)
+        wp = layout.pl(None, 1 if heads else None)
+        cp = layout.pl(rows)
+        fn = functools.partial(_mla_decode, cache_index=cache_index,
+                               absorb=absorb, scale=scale)
+        return layout.per_rank(fn, args, (qp, qp, cp, cp, wp, wp), qp)
+    qp, wp = layout.pl(rows), layout.pl()
+    cp = layout.pl(rows, 1)
+    t_local = c_all.shape[1] // layout.tp_size
+    first = layout.mesh.get_local_rank(layout.tp) * t_local
+    kw = dict(absorb=absorb, scale=scale, cache_index=cache_index,
+              first=first)
+
+    def row_max(qn, qr, c, kr, wk):
+        return _mla_scores(qn, qr, c, kr, wk, **kw).amax(-1)
+
+    m = layout.per_rank(row_max, args[:5], (qp, qp, cp, cp, wp),
+                        layout.pl(rows, tp_partial="max"))
+    m = m.redistribute(layout.mesh, qp)
+
+    def part(qn, qr, c, kr, wk, wv, mm):
+        e = torch.exp(_mla_scores(qn, qr, c, kr, wk, **kw) - mm.unsqueeze(-1))
+        return (e.sum(-1), _mla_values(e.to(qn.dtype), c, wv, absorb=absorb)
+                .float())
+
+    part_pl = layout.pl(rows, tp_partial="sum")
+    den, num = layout.per_rank(part, (*args, m),
+                               (qp, qp, cp, cp, wp, wp, qp),
+                               (part_pl, part_pl))
+    den = den.redistribute(layout.mesh, qp)
+    num = num.redistribute(layout.mesh, qp)
+    return (num / den.transpose(1, 2).unsqueeze(-1)).to(q_nope.dtype)
 
 
 def make_mla_cache(batch: int, size: int, cfg, dtype,

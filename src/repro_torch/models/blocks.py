@@ -146,14 +146,24 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, kind: str, device=None,
     return Layer(gen, cfg, kind, device, dtype)
 
 
+def _residual(layout, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """``x + h``; on a mesh reduced to the activations' layout (a
+    row-parallel product's partial sum over tp is all-reduced here, as
+    Megatron does after each half of a layer)."""
+    return x + h if layout is None else layout.activation(x + h)
+
+
 def _ffn(p: Layer, x: torch.Tensor, cfg: ArchConfig, kind: str,
-         **moe_kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The layer's second half (without its residual): ``(y, aux)``."""
+         layout=None, **moe_kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's second half (without its residual): ``(y, aux)``;
+    routed experts through ``layout.moe`` on a mesh."""
     xin = apply_norm(p.norm_mlp, x, cfg.norm)
     if kind in _MLP:
         return apply_mlp(p.mlp, xin, cfg.act), 0.0
-    y, aux = apply_moe(p.moe, xin, n_experts=cfg.n_experts, top_k=cfg.top_k,
-                       act=cfg.act, **moe_kw)
+    moe = (apply_moe if layout is None
+           else functools.partial(layout.moe, apply_moe))
+    y, aux = moe(p.moe, xin, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                 act=cfg.act, **moe_kw)
     if hasattr(p, "shared"):
         y = y + apply_mlp(p.shared, xin, cfg.act)
     return y, aux
@@ -174,12 +184,14 @@ def apply_layer(p: Layer, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ArchConfig, kind: str, *, enc_out=None,
                 collect_kv: bool = False,
                 attend: Callable = attn.flash_attention,
-                moe_cf: Optional[float] = None):
+                moe_cf: Optional[float] = None, layout=None):
     """Residual layer body over a full sequence; ``attend`` is the
     attention (the kernel for prefill, :func:`~.attention.mea_attention`
     in training); ``enc_out`` the encoder's output a ``dec`` layer attends
     to; ``moe_cf`` overrides the MoE capacity factor (prefill's no-drop
-    ``E / top_k``; training keeps the default 1.25).
+    ``E / top_k``; training keeps the default 1.25); ``layout`` the
+    mesh's :class:`~repro_torch.sharding.dtensor.Layout` (``p`` then holds
+    the weights at their point of use; ``attend`` already runs per rank).
 
     Returns ``(x, aux, kv)``: aux is the layer's load-balancing loss (0.0
     for the kinds without experts), kv its cache contribution when
@@ -194,23 +206,23 @@ def apply_layer(p: Layer, x: torch.Tensor, positions: torch.Tensor,
         res = body(p.block, apply_norm(p.norm, x, cfg.norm), cfg.n_heads,
                    return_state=collect_kv)
         h, kv = res if collect_kv else (res, None)
-        return x + h, 0.0, kv
+        return _residual(layout, x, h), 0.0, kv
     if kind == "rec":
         res = rec.apply_rglru_block(p.rec, apply_norm(p.norm_rec, x, cfg.norm),
-                                    return_state=collect_kv)
+                                    return_state=collect_kv, layout=layout)
         h, kv = res if collect_kv else (res, None)
-        x = x + h
+        x = _residual(layout, x, h)
     elif kind in _MLA:
         h, (c, k_rope) = attn.apply_mla(
             p.attn, apply_norm(p.norm_attn, x, cfg.norm), positions, cfg,
             attend=attend)
-        x = x + h
+        x = _residual(layout, x, h)
         if collect_kv:
             kv = {"c": c, "k_rope": k_rope}
     else:
         h, (k, v) = _self_attention(p, apply_norm(p.norm_attn, x, cfg.norm),
                                     positions, cfg, kind, attend=attend)
-        x = x + h
+        x = _residual(layout, x, h)
         if collect_kv:
             if kind == "lattn":
                 k = k[:, :, -cfg.attn_window:]
@@ -222,12 +234,12 @@ def apply_layer(p: Layer, x: torch.Tensor, positions: torch.Tensor,
                 p.cross, apply_norm(p.norm_cross, x, cfg.norm), positions,
                 theta=cfg.rope_theta, causal=False, rope=False,
                 cross_kv=(ck, cv), attend=attend)
-            x = x + h
+            x = _residual(layout, x, h)
             if collect_kv:
                 kv["cross_k"], kv["cross_v"] = ck, cv
-    y, aux = _ffn(p, x, cfg, kind,
+    y, aux = _ffn(p, x, cfg, kind, layout,
                   **({} if moe_cf is None else {"capacity_factor": moe_cf}))
-    return x + y, aux, kv
+    return _residual(layout, x, y), aux, kv
 
 
 def no_drop_capacity(cfg: ArchConfig) -> float:
@@ -236,7 +248,7 @@ def no_drop_capacity(cfg: ArchConfig) -> float:
 
 
 def apply_layer_decode(p: Layer, x: torch.Tensor, pos: int,
-                       cfg: ArchConfig, kind: str, cache: Dict):
+                       cfg: ArchConfig, kind: str, cache: Dict, layout=None):
     """x: ``[B, 1, D]``; cache: this layer's cache (``{"k", "v"}``, MLA's
     ``{"c", "k_rope"}``, ``dec``'s with ``cross_k`` / ``cross_v``, a
     recurrent state). Attention caches are written in place; the
@@ -250,36 +262,40 @@ def apply_layer_decode(p: Layer, x: torch.Tensor, pos: int,
     if kind in _XLSTM:
         step = (rec.apply_mlstm_decode if kind == "mlstm"
                 else rec.apply_slstm_decode)
+        if layout is not None:
+            # the xLSTM blocks run replicated over tp: so do their states
+            cache = {k: layout.replicate_tp(t) for k, t in cache.items()}
         h, new_cache = step(p.block, apply_norm(p.norm, x, cfg.norm), cache,
                             cfg.n_heads)
-        return x + h, new_cache
+        return _residual(layout, x, h), new_cache
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     if kind == "rec":
         h, new_cache = rec.apply_rglru_decode(
-            p.rec, apply_norm(p.norm_rec, x, cfg.norm), cache)
+            p.rec, apply_norm(p.norm_rec, x, cfg.norm), cache, layout)
     elif kind in _MLA:
         h, new_cache = attn.apply_mla(
             p.attn, apply_norm(p.norm_attn, x, cfg.norm), positions, cfg,
             cache=cache, cache_index=pos,
-            absorb=getattr(cfg, "mla_absorb", False))
+            absorb=getattr(cfg, "mla_absorb", False), layout=layout)
     else:
         h, new_cache = _self_attention(
             p, apply_norm(p.norm_attn, x, cfg.norm), positions, cfg, kind,
-            cache=cache, cache_index=pos)
-    x = x + h
+            cache=cache, cache_index=pos, layout=layout)
+    x = _residual(layout, x, h)
     if kind == "dec":
         h, _ = attn.apply_gqa(
             p.cross, apply_norm(p.norm_cross, x, cfg.norm),
             torch.zeros_like(positions), theta=cfg.rope_theta, causal=False,
             rope=False, cross_kv=(cache["cross_k"], cache["cross_v"]),
-            attend=attn.mea_attention)
-        x = x + h
+            attend=(attn.mea_attention if layout is None
+                    else layout.attend(attn.mea_attention)))
+        x = _residual(layout, x, h)
     moe_kw = ({} if kind in _MLP else
               {"group_size": x.shape[0],
                "capacity_factor": no_drop_capacity(cfg)})
-    y, _ = _ffn(p, x, cfg, kind, **moe_kw)
-    return x + y, new_cache
+    y, _ = _ffn(p, x, cfg, kind, layout, **moe_kw)
+    return _residual(layout, x, y), new_cache
 
 
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, size: int, dtype,
@@ -359,18 +375,26 @@ def _remat(fn: Callable, policy: str) -> Callable:
 def apply_segment(seg: nn.ModuleList, x: torch.Tensor,
                   positions: torch.Tensor, cfg: ArchConfig,
                   kinds: Tuple[str, ...], *, remat_policy: str = "full",
-                  enc_out=None, attend: Callable = attn.mea_attention):
+                  enc_out=None, attend: Callable = attn.mea_attention,
+                  layout=None):
     """The forward over the segment's groups, each under ``remat_policy``,
     without caches: the training forward (attention through
     :func:`~.attention.mea_attention`), or whisper's encoder in a prefill
-    (``attend`` the kernel, remat ``"none"``). Returns ``(x, aux)``, aux
+    (``attend`` the kernel, remat ``"none"``). On a mesh (``layout``) each
+    group takes its weights at their point of use inside the remat
+    region, so the backward gathers them again. Returns ``(x, aux)``, aux
     summed over the layers."""
+    if layout is not None:
+        attend = layout.attend(attend)
 
     def group_body(group, xc, enc):
         aux = 0.0
+        if layout is not None:
+            group = layout.at_use(group)
         for i, kind in enumerate(kinds):
             xc, a, _ = apply_layer(group[f"{i}_{kind}"], xc, positions, cfg,
-                                   kind, enc_out=enc, attend=attend)
+                                   kind, enc_out=enc, attend=attend,
+                                   layout=layout)
             aux = aux + a
         return xc, aux
 
@@ -384,18 +408,25 @@ def apply_segment(seg: nn.ModuleList, x: torch.Tensor,
 
 def apply_segment_prefill(seg: nn.ModuleList, x: torch.Tensor,
                           positions: torch.Tensor, cfg: ArchConfig,
-                          kinds: Tuple[str, ...], *, enc_out=None):
+                          kinds: Tuple[str, ...], *, enc_out=None,
+                          attend: Callable = attn.flash_attention,
+                          layout=None):
     """Full-sequence forward that also emits the per-layer cache, stacked
     over the segment's groups; MoE layers route at the no-drop capacity."""
     no_drop = no_drop_capacity(cfg) if cfg.n_experts else None
+    if layout is not None:
+        attend = layout.attend(attend)
     kvs: Dict[str, List[Dict]] = {f"{i}_{kind}": []
                                   for i, kind in enumerate(kinds)}
     for group in seg:
+        if layout is not None:
+            group = layout.at_use(group)
         for i, kind in enumerate(kinds):
             key = f"{i}_{kind}"
             x, _, kv = apply_layer(group[key], x, positions, cfg, kind,
                                    enc_out=enc_out, collect_kv=True,
-                                   moe_cf=no_drop)
+                                   moe_cf=no_drop, attend=attend,
+                                   layout=layout)
             kvs[key].append(kv)
     cache = {key: {name: torch.stack([kv[name] for kv in layers])
                    for name in layers[0]}
@@ -405,17 +436,19 @@ def apply_segment_prefill(seg: nn.ModuleList, x: torch.Tensor,
 
 def apply_segment_decode(seg: nn.ModuleList, seg_cache: Dict,
                          x: torch.Tensor, pos: int, cfg: ArchConfig,
-                         kinds: Tuple[str, ...]):
+                         kinds: Tuple[str, ...], layout=None):
     """One decode step over the segment; each layer's slice of the stacked
     cache is updated in place (an attention layer writes its k/v slot, a
     recurrent layer's new state is copied over the old). Returns ``(x,
     seg_cache)``."""
     for g, group in enumerate(seg):
+        if layout is not None:
+            group = layout.at_use(group)
         for i, kind in enumerate(kinds):
             key = f"{i}_{kind}"
             layer_cache = {name: t[g] for name, t in seg_cache[key].items()}
             x, new = apply_layer_decode(group[key], x, pos, cfg, kind,
-                                        layer_cache)
+                                        layer_cache, layout)
             for name, t in new.items():
                 if t is not layer_cache[name]:
                     layer_cache[name].copy_(t)

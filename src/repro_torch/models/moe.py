@@ -17,7 +17,7 @@ a per-(expert, out-channel) fp32 ``*_scale``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -125,7 +125,9 @@ def expert_ffn(p: MoE, x: torch.Tensor, act: str) -> torch.Tensor:
 
 def apply_moe(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
               act: str, group_size: int = 512,
-              capacity_factor: float = 1.25):
+              capacity_factor: float = 1.25,
+              experts: Optional[Tuple[int, int]] = None,
+              return_stats: bool = False):
     """x ``[B, S, D]`` -> ``(y [B, S, D], aux)``, aux the Switch
     load-balancing loss (fp32 scalar).
 
@@ -142,7 +144,15 @@ def apply_moe(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
     ``moe.route`` (router, top-k, places, the index copy into the experts'
     buffer), ``moe.experts`` (the expert products over the whole buffer)
     and ``moe.combine`` (the gather and the gate-weighted sum), so a
-    profile splits a MoE layer's device time among them."""
+    profile splits a MoE layer's device time among them.
+
+    ``experts=(first, n)``: ``p`` holds only experts ``first`` … ``first +
+    n - 1`` (expert parallelism): the tokens are routed over all
+    ``n_experts``, only those experts' slots run, and ``y`` is their part
+    of the sum (the tokens past the last group pass through on the part
+    with ``first == 0``). ``return_stats``: return the routing statistics
+    ``(top-1 share, mean prob)`` per expert instead of aux (a sharded
+    caller averages them over its ranks before taking aux)."""
     dt = x.dtype
     b, s, d = x.shape
     tokens = x.reshape(b * s, d)
@@ -167,21 +177,26 @@ def apply_moe(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
         pos = torch.gather(before, 2, expert_idx.reshape(
             n_groups, g_size * top_k, 1)).reshape(n_groups, g_size, top_k)
         keep = pos < capacity                                # [G, g, k]
+        first, n_local = (0, n_experts) if experts is None else experts
+        if experts is not None:
+            keep = keep & (expert_idx >= first) & (expert_idx < first + n_local)
 
         # the experts' buffer [E, G, C, D]: slot (e, grp, c) holds the
-        # token whose k-th choice went there, or zeros
+        # token whose k-th choice went there, or zeros; a dropped slot
+        # goes to one spare row past the buffer (static shapes: no mask)
         grp = torch.arange(n_groups, device=x.device)[:, None, None]
-        slot = (expert_idx * n_groups + grp) * capacity + pos
-        slot = torch.where(keep, slot, 0).reshape(-1)
+        slot = ((expert_idx - first) * n_groups + grp) * capacity + pos
+        n_slots = n_local * n_groups * capacity
         src = xt[:, :, None, :].expand(n_groups, g_size, top_k, d).reshape(
             -1, d)
-        kept = keep.reshape(-1)
-        expert_in = torch.zeros((n_experts * n_groups * capacity, d),
-                                dtype=dt, device=x.device)
-        expert_in.index_copy_(0, slot[kept], src[kept])
+        expert_in = torch.zeros((n_slots + 1, d), dtype=dt, device=x.device)
+        expert_in.index_copy_(0, torch.where(keep, slot, n_slots).reshape(-1),
+                              src)
+        slot = torch.where(keep, slot, 0).reshape(-1)
     with record_function("moe.experts"):
         expert_out = expert_ffn(
-            p, expert_in.reshape(n_experts, n_groups * capacity, d), act)
+            p, expert_in[:n_slots].reshape(n_local, n_groups * capacity, d),
+            act)
 
     with record_function("moe.combine"):
         # each token's kept slots weighted by their gates (rounded to x's
@@ -193,9 +208,13 @@ def apply_moe(p: MoE, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     y = yt.reshape(n_groups * g_size, d)
     if n_groups * g_size < t:
-        y = torch.cat([y, tokens[n_groups * g_size:]], dim=0)
+        tail = tokens[n_groups * g_size:]
+        y = torch.cat([y, tail if first == 0 else torch.zeros_like(tail)],
+                      dim=0)
     # Switch's load-balancing loss: E · sum_e(top-1 share_e · mean prob_e)
     frac = torch.mean(onehot[:, :, 0].float().sum(dim=1) / g_size, dim=0)
     mean_p = torch.mean(probs, dim=(0, 1))
+    if return_stats:
+        return y.reshape(b, s, d), (frac, mean_p)
     aux = torch.sum(frac * mean_p) * n_experts
     return y.reshape(b, s, d), aux

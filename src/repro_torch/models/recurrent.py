@@ -188,15 +188,23 @@ def _rglru_coeffs(p: RGLRU, u: torch.Tensor, dt):
     return a, b
 
 
-def apply_rglru_block(p: RGLRU, x: torch.Tensor, return_state: bool = False):
+def _gate_input(u: torch.Tensor, layout) -> torch.Tensor:
+    """The gates' input: on a mesh gathered over tp, as the gate weights'
+    output width lies there (else DTensor may shard the positions)."""
+    return u if layout is None else layout.replicate_tp(u)
+
+
+def apply_rglru_block(p: RGLRU, x: torch.Tensor, return_state: bool = False,
+                      layout=None):
     """x: ``[B, S, D]`` -> ``[B, S, D]`` (and the state ``{"h", "conv"}``
     after the last position when ``return_state``). ``h`` is rounded to the
-    compute dtype before it is kept, as in the reference."""
+    compute dtype before it is kept, as in the reference. ``layout``: a
+    mesh's :class:`~repro_torch.sharding.dtensor.Layout`."""
     dt = x.dtype
     u_pre = x @ p.wx.to(dt)
     gate = _gelu(x @ p.wgate.to(dt))
     u = causal_conv1d(p.conv, u_pre)
-    a, b = _rglru_coeffs(p, u, dt)
+    a, b = _rglru_coeffs(p, _gate_input(u, layout), dt)
     h = _linear_scan(a, b).to(dt)
     out = (h * gate) @ p.wo.to(dt)
     if return_state:
@@ -214,15 +222,15 @@ def rglru_init_state(batch: int, width: int, conv_k: int, dtype,
     }
 
 
-def apply_rglru_decode(p: RGLRU, x: torch.Tensor, state: Dict):
+def apply_rglru_decode(p: RGLRU, x: torch.Tensor, state: Dict, layout=None):
     """x: ``[B, 1, D]``; state ``{"h": [B, W] fp32, "conv": [B, K-1, W]}``.
     Returns ``(y [B, 1, D], new state)``."""
     dt = x.dtype
     u = x[:, 0] @ p.wx.to(dt)
     gate = _gelu(x[:, 0] @ p.wgate.to(dt))
     u, conv_state = conv1d_decode(p.conv, u, state["conv"])
-    a, b = _rglru_coeffs(p, u[:, None], dt)
-    h = a[:, 0] * state["h"] + b[:, 0]
+    a, b = _rglru_coeffs(p, _gate_input(u, layout), dt)
+    h = a * state["h"] + b
     y = (h.to(dt) * gate) @ p.wo.to(dt)
     return y[:, None], {"h": h, "conv": conv_state}
 

@@ -147,6 +147,30 @@ def restore(directory: str, tree_like: Any, step: Optional[int] = None
     return unflatten(tree_like, out), step
 
 
+def reshard(tree: Any, mesh, specs: Any) -> Any:
+    """Elastic restore: place a tree of host arrays (numpy or torch, the
+    same values on every rank: each restored the same checkpoint) onto a
+    (possibly different) ``mesh`` as DTensors laid out by ``specs`` (the
+    tree's structure, a spec of :mod:`repro_torch.sharding.rules` at each
+    leaf). Each rank keeps its own shard: no scatter from rank 0."""
+    from repro_torch.sharding.dtensor import distribute
+    from repro_torch.sharding.rules import placements
+
+    def put(x, spec):
+        t = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
+        return distribute(t.to(mesh.device_type), mesh,
+                          placements(spec, mesh))
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, s) for v, s in zip(node, spec))
+        return put(node, spec)
+
+    return walk(tree, specs)
+
+
 # ---------------------------------------------------------------------------
 # batch-grid manifest (the forest trainer's streaming checkpoints)
 # ---------------------------------------------------------------------------

@@ -30,11 +30,14 @@ from repro_torch.config import TrainConfig
 def init_opt_state(params: Sequence[torch.Tensor],
                    moment_dtype=torch.float32) -> Dict:
     """Zero moments (``moment_dtype``: bf16 halves the optimizer's memory)
-    and a step count of 0 (int32) on the parameters' device."""
+    and a step count of 0 (int32) on the parameters' device; a DTensor
+    parameter's moments are DTensors laid out alike."""
     device = params[0].device if len(params) else None
-    return {"m": [torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+    return {"m": [torch.zeros_like(p, dtype=moment_dtype,
+                                   memory_format=torch.contiguous_format)
                   for p in params],
-            "v": [torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+            "v": [torch.zeros_like(p, dtype=moment_dtype,
+                                   memory_format=torch.contiguous_format)
                   for p in params],
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
