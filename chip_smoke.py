@@ -39,10 +39,12 @@
    d=192; d=192 at S=300) and the recurrent and encoder families' (phase
    10c: recurrentgemma-9b's MQA 16:1 at d=256, llava-next-34b's GQA 7:1
    at S=1,600, whisper-tiny's encoder, non-causal at S=1,500, and its
-   cross-attention, Sq=64, Skv=1,500); two launches must give the same
+   cross-attention, Sq=64, Skv=1,500) and one query over 1,500 keys at
+   d=192 (the fp32 plan's key splits); two launches must give the same
    bits. Checks that the bf16 instances run on the tensor cores and load
    by TMA (``HGMMA`` and ``UTMALDG`` in each one's SASS) and logs their
-   registers. Times kernel,
+   registers; fails if an fp32 instance spills (ptxas), and logs each fp32
+   instance's resident warps. Times kernel,
    plain version and ``scaled_dot_product_attention`` at the serving shape
    and the two MoE prefills' shapes in fp32 and bf16.
 6. Drives the port's generation path through ``TabularGenerator`` at the
@@ -2568,6 +2570,13 @@ def ptxas_lines(build_log):
     return props
 
 
+def spills(lines) -> bool:
+    """Whether ptxas's lines of one function report spill stores or loads."""
+    return any(int(n) for line in lines
+               for n in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                   line))
+
+
 def check_tensor_cores(lib_path):
     """Every bf16 instance of flash_attention (``fa_wgmma_kernel<d>``) must
     hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads) in its SASS. Returns
@@ -2588,6 +2597,30 @@ def check_tensor_cores(lib_path):
         raise AssertionError(f"bf16 flash_attention does not run wgmma fed "
                              f"by TMA at every d: {counts}")
     return counts
+
+
+def fp32_residency():
+    """Warps resident on a SM of each fp32 flash_attention instance, as the
+    card reports them (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the
+    kernel's query tile, threads, shared memory and ring slots must be
+    fp32_plan's."""
+    from repro_torch.kernels.flash_attention.ops import (
+        FP32_TILES, fp32_config, fp32_plan)
+    out = {}
+    for d, (_, _, _, bq) in FP32_TILES.items():
+        plan = fp32_plan(1, 1, bq * 132, 4096, d, False)
+        cfg = fp32_config(d)
+        if (cfg["bq"], cfg["threads"], cfg["smem_bytes"], cfg["stages"]) != (
+                plan.bq, plan.threads, plan.smem_bytes, plan.stages):
+            raise AssertionError(f"fp32 flash_attention d={d}: the kernel's "
+                                 f"{cfg} is not the plan's {plan}")
+        if cfg["blocks_per_sm"] < 1:
+            raise AssertionError(f"fp32 flash_attention d={d} fits no SM: "
+                                 f"{cfg}")
+        out[f"d={d} stages={plan.stages}"] = (
+            f"{cfg['warps_per_sm']} warps ({cfg['blocks_per_sm']} x "
+            f"{cfg['threads']} threads, {cfg['smem_bytes']} B)")
+    return out
 
 
 def time_flash(device, shape, dtype, causal=True):
@@ -3608,11 +3641,9 @@ def drive_recurrent_encdec_serving(device):
     return launches, out
 
 
-def flash_phase(device):
-    """flash_attention against its plain version at every case, then timed
-    at smollm-135m's serving shape and the two MoE prefills' shapes in fp32
-    and bf16. Returns (worst abs difference per dtype, timings per dtype at
-    the serving shape, timings at the MoE shapes by model and dtype)."""
+def flash_cases():
+    """(name, (B, Hq, Hkv, Sq, Skv, d), causal): where flash_attention is
+    held to its plain version, fp32 and bf16."""
     cases = [("serving", FA_SERVE, True),
              ("ragged", (1, 9, 3, 1000, 1000, 64), True),
              ("Sq = Skv = 300", (2, 9, 3, 300, 300, 64), True),
@@ -3629,7 +3660,19 @@ def flash_phase(device):
               ("d=192 ragged", (2, 16, 16, 300, 300, 192), True)]
     cases += [(label, shape, causal)
               for label, (shape, causal) in FA_FAMILIES.items()]
-    worst = check_flash(device, cases)
+    # one query over long keys: the fp32 plan's 8 key splits (whisper-tiny
+    # cross, 4 splits, is among FA_FAMILIES above)
+    cases.append(("one query, 1,500 keys, d=192", (2, 4, 4, 1, 1500, 192),
+                  False))
+    return cases
+
+
+def flash_phase(device):
+    """flash_attention against its plain version at every case, then timed
+    at smollm-135m's serving shape and the two MoE prefills' shapes in fp32
+    and bf16. Returns (worst abs difference per dtype, timings per dtype at
+    the serving shape, timings at the MoE shapes by model and dtype)."""
+    worst = check_flash(device, flash_cases())
     timing, moe_timing = {}, {}
     for label, shape in (("serving", FA_SERVE), ("dbrx-132b", FA_DBRX),
                          ("deepseek-v2-236b", FA_DEEPSEEK)):
@@ -3898,9 +3941,17 @@ def _main() -> int:
         build.load(name)
     log(f"kernel build (all three in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
+    fp32_spills = []
     for name, (_, build_log) in built.items():
         for fn, lines in ptxas_lines(build_log).items():
             log(f"  {name} {fn}: {'; '.join(lines)}")
+            if name == "flash_attention" and "fa_kernel" in fn \
+                    and spills(lines):
+                fp32_spills.append(fn)
+    if fp32_spills:
+        raise AssertionError(f"fp32 flash_attention instances spill: "
+                             f"{fp32_spills}")
+    log(f"fp32 flash_attention resident on a SM: {fp32_residency()}")
     sass = check_tensor_cores(built["flash_attention"][0])
     log(f"flash_attention bf16 instances on the tensor cores, loading by "
         f"TMA: (HGMMA, UTMALDG) instructions per d {sass}")
