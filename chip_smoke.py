@@ -27,7 +27,14 @@
    order; two launches on the same inputs must give the same bits. Times
    kernel and plain version at MO levels 0 and 6, SO level 6 and MO level
    6 with int8 codes and at 256 bins (two bin windows a launch; 256 and
-   300 bins are among the bit-equal cases).
+   300 bins are among the bit-equal cases). Then launches over the lanes
+   of a batch of ensembles (each with its own codes and weights; E = 2 and
+   6, MO and SO, shuffled and narrowed lane maps, int8 codes, codes
+   outside the bins, 256 bins, the leaf sums, the resource arm's batch):
+   bit for bit against the plain version on the CPU, and each lane equal
+   to its ensemble launched alone; times one launch over 3 MO ensembles
+   at level 6 and over 2 SO ensembles at level 6 against as many launches
+   of one, each beside its bound.
 5. Holds ``flash_attention`` against its plain version on the card (fp32
    within 2e-5, rtol = atol as tests/test_kernels.py; bf16 within atol
    1e-3 plus rtol 1e-2, about an ulp),
@@ -94,9 +101,15 @@
    width (p=368, duplicate_k=20, n_trees=20, max_depth=7, n_bins=64,
    learning_rate=1.5, reg_lambda=1.0) on calorimeter-like showers made here
    from a seed: MO on a grid cut to n_t=3 x 2 classes of 8,000 rows (6
-   ensembles of 160,000 rows) and SO on n_t=2 x 1 class (368 lanes). Checks
-   the ``hist`` launch count, that a resume from the checkpoint launches
-   nothing, and generates 1,000 rows from the trained MO model.
+   ensembles of 160,000 rows) and SO on n_t=2 x 1 class (368 lanes). A
+   batch trains as one loop a group (``fitting.ensemble_groups``: MO
+   groups of 3, SO of 1 at this width). Checks the ``hist`` launch count
+   (one a level and one for the leaf sums, a round of a group), that a
+   resume from the checkpoint launches nothing, and generates 1,000 rows
+   from the trained MO model. Then fits at the default batch and at
+   ``ensembles_per_batch=1`` must be equal on every field: MO n_t=1 over
+   2 classes with 5 trees and SO n_t=2 on 1 class at depth 6 with 4 trees
+   (each one group of two); logs seconds an ensemble and the device peak.
 9. Drives the out-of-core sharded training path at the same width (MO,
    n_t=2 x 2 classes of 8,000 rows: 4 ensembles of 320,000 weight-masked
    rows): ``ingest`` into a store of 4,096-row shards, a store fit under a
@@ -165,8 +178,10 @@
    device and on the sharded route's one rank, a 2-layer
    smollm-135m-width prefill and 8 greedy tokens, and a 2-layer
    smollm-135m-width training step: loss within 1e-5 relative, parameters
-   after one AdamW step within 1e-4) and that a warm-start extension on
-   the card equals a cold fit bit for bit.
+   after one AdamW step within 1e-4), that a warm-start extension on
+   the card equals a cold fit bit for bit, and that the two-moons fits on
+   the card at the default batch (groups of 8 and 2) equal, on every
+   field, the same fits at ``ensembles_per_batch=1``.
 
 12. Drives the comparison plane (``drive_comparison``, budgeted at 120 s):
    (a) NN-flow, NN-diffusion, TVAE and CTGAN on the card against the plain
@@ -1471,7 +1486,7 @@ def hist_inputs(n, p, out, S, n_nodes, n_bins, code_dtype, seed, device,
     return codes.to(code_dtype), nid, grad, w
 
 
-def hist_expected(codes, nid, g, w, n_nodes, n_bins):
+def hist_expected(codes, nid, g, w, n_nodes, n_bins, ens=None):
     """What the kernel computes: the plain version, with a code outside
     [0, n_bins) adding its row to no cell of that feature (the kernel's
     spare bin, never written out)."""
@@ -1479,9 +1494,9 @@ def hist_expected(codes, nid, g, w, n_nodes, n_bins):
     wide = codes.to(torch.int32)             # n_bins may pass int8's range
     inside = (wide >= 0) & (wide < n_bins)
     if bool(inside.all()):
-        return histogram_ref(codes, nid, g, w, n_nodes, n_bins)
+        return histogram_ref(codes, nid, g, w, n_nodes, n_bins, ens)
     spare = torch.where(inside, wide, n_bins)
-    sums, cnt = histogram_ref(spare, nid, g, w, n_nodes, n_bins + 1)
+    sums, cnt = histogram_ref(spare, nid, g, w, n_nodes, n_bins + 1, ens)
     return (sums[:, :, :, :n_bins].contiguous(),
             cnt[:, :, :, :n_bins].contiguous())
 
@@ -1555,12 +1570,142 @@ def hist_cases():
     return exact, full
 
 
-def hist_bytes_ops(n, p, out, S, n_nodes, n_bins, code_bytes):
+def hist_bytes_ops(n, p, out, S, n_nodes, n_bins, code_bytes, E=1):
     """Bytes the function must move (each input read once, each output
-    written once) and the adds it does (one per row, feature and column)."""
-    nbytes = (n * p * code_bytes + 4 * (S * n + S * n * out + n)
+    written once: E ensembles' codes and weights, S lanes' node ids,
+    gradients and histograms) and the adds it does (one per row, feature
+    and column of each lane)."""
+    nbytes = (E * n * p * code_bytes + 4 * (S * n + S * n * out + E * n)
               + 4 * S * n_nodes * p * n_bins * (out + 1))
     return nbytes, n * p * S * out
+
+
+def hist_batch_inputs(E, n, p, out, S, n_nodes, n_bins, code_dtype, seed,
+                      device, edge=None):
+    """A batch of E ensembles' codes [E, n, p] and weights [E, n], S lanes'
+    node ids and gradients, and the lane map ens [S]: shuffled, and where
+    E > 2 narrowed as the boosting loop narrows it (ensemble 1's lanes have
+    all stopped). ``edge`` as in :func:`hist_inputs`."""
+    parts = [hist_inputs(n, p, out, 1, n_nodes, n_bins, code_dtype,
+                         seed + 10 * e, device, edge) for e in range(E)]
+    codes = torch.stack([c for c, _, _, _ in parts])
+    w = torch.stack([ww for _, _, _, ww in parts])
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    nid = torch.randint(0, n_nodes, (S, n), generator=gen, device=device,
+                        dtype=torch.int32)
+    if edge == "empty_nodes":
+        nid = nid - nid % 2
+    grad = torch.randn((S, n, out), generator=gen, device=device)
+    kept = torch.tensor([e for e in range(E) if E <= 2 or e != 1],
+                        device=device, dtype=torch.int32)
+    order = torch.randperm(S, generator=gen, device=device)
+    ens = kept.repeat(-(-S // len(kept)))[:S][order].contiguous()
+    return codes, nid, grad, w, ens
+
+
+def hist_batch_cases():
+    """Launches over the lanes of E ensembles (a batch of the fit), each
+    ``(name, (E, n, p, out, S, n_nodes, n_bins, code dtype)[, edge])``:
+    MO and SO, E = 2 and 6, shuffled and narrowed lane maps, int8 codes,
+    codes outside the bins, two bin windows, the leaf sums, and the
+    resource arm's batch (6 ensembles at p = 8, 32 bins)."""
+    i8, i16, i32 = torch.int8, torch.int16, torch.int32
+    return [
+        ("MO E=2, 2,000 rows level 6", (2, 2000, P, P, 2, 64, N_BINS, i32)),
+        ("MO E=6 narrowed to 4 lanes, int8",
+         (6, 3000, 37, 37, 4, 8, N_BINS, i8)),
+        ("SO E=2, 37 lanes each, int8", (2, 700, 37, 1, 74, 8, N_BINS, i8)),
+        ("SO E=6 shuffled, narrowed, codes outside",
+         (6, 600, 37, 1, 150, 4, N_BINS, i32), "out_of_range"),
+        ("SO E=2, 368 lanes each, small n", (2, 130, P, 1, 2 * P, 8, N_BINS,
+                                              i8)),
+        ("MO E=6 256 bins", (6, 600, 37, 37, 6, 4, 256, i16)),
+        ("SO E=6 empty nodes", (6, 700, 37, 1, 100, 8, N_BINS, i8),
+         "empty_nodes"),
+        ("SO E=6 leaf sums", (6, 3000, 1, 1, 48, 16, 1, i8)),
+        ("MO E=6 leaf sums", (6, 3000, 1, 37, 6, 16, 1, i8)),
+        ("ours-SO batch of 6, level 3", (6, 5210, 8, 1, 48, 8, 32, i32)),
+        ("ours-MO batch of 6, level 3", (6, 5210, 8, 8, 6, 8, 32, i8)),
+    ]
+
+
+def check_hist_batches(device, cases, histogram=None):
+    """hist over a batch of ensembles: bit-equal to the plain version on the
+    CPU, two launches bit-equal, and each lane equal to its ensemble
+    launched alone (one launch an ensemble, over its lanes in the batch).
+    Returns the largest abs difference (0.0)."""
+    if histogram is None:
+        from repro_torch.kernels.hist.ops import histogram
+    cpu = torch.device("cpu")
+    worst = 0.0
+    for i, (name, shape, *edge) in enumerate(cases):
+        E, n, p, out, S, nn, nb, dt = shape
+        args = hist_batch_inputs(*shape, seed=900 + 20 * i, device=device,
+                                 edge=edge[0] if edge else None)
+        codes, nid, g, w, ens = args
+        got = histogram(codes, nid, g, w, nn, nb, ens=ens)
+        again = histogram(codes, nid, g, w, nn, nb, ens=ens)
+        ref = hist_expected(*[a.to(cpu) for a in args[:4]], nn, nb,
+                            args[4].to(cpu))
+        alone_ok = True
+        for e in range(E):
+            lanes = (ens == e).nonzero()[:, 0]
+            if lanes.numel() == 0:
+                continue
+            alone = histogram(codes[e], nid[lanes].contiguous(),
+                              g[lanes].contiguous(), w[e], nn, nb)
+            alone_ok &= all(torch.equal(a, b[lanes])
+                            for a, b in zip(alone, got))
+        sync(device)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        err = max((a.cpu() - b).abs().max().item() if b.numel() else 0.0
+                  for a, b in zip(got, ref))
+        log(f"hist batch {name} (E,n,p,out,S,nodes,bins,codes)={shape}: max "
+            f"abs diff {err!r}, bit-equal to the plain version on the CPU: "
+            f"{ok}; repeat bit-equal {repeat}; each lane equal to its "
+            f"ensemble launched alone: {alone_ok}")
+        if not (ok and repeat and alone_ok):
+            raise AssertionError(f"hist batch {name} disagrees")
+        worst = max(worst, err)
+        del got, again, ref
+    return worst
+
+
+def time_hist_batch(device, E, shape):
+    """One launch over E ensembles' lanes against E launches of one
+    ensemble each, at a full-width level: (n, p, out, lanes an ensemble,
+    n_nodes, n_bins, code dtype). Times in alternating rounds, with each
+    one's bound from :func:`hist_bytes_ops`."""
+    from repro_torch.kernels.hist.ops import histogram
+    n, p, out, lanes, nn, nb, dt = shape
+    codes, nid, g, w, _ = hist_batch_inputs(E, n, p, out, E * lanes, nn,
+                                            nb, dt, seed=11, device=device)
+    ens = torch.arange(E, device=device,
+                       dtype=torch.int32).repeat_interleave(lanes)
+    singles = [(codes[e], nid[e * lanes:(e + 1) * lanes],
+                g[e * lanes:(e + 1) * lanes], w[e]) for e in range(E)]
+    histogram(codes, nid, g, w, nn, nb, ens=ens)        # warm-up
+    batched, alone = [], []
+    for _ in range(3):
+        batched.append(cuda_ms(
+            lambda: histogram(codes, nid, g, w, nn, nb, ens=ens), 3))
+        alone.append(cuda_ms(lambda: [histogram(*a, nn, nb)
+                                      for a in singles], 3))
+    nbytes, ops = hist_bytes_ops(n, p, out, E * lanes, nn, nb,
+                                 codes.element_size(), E)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    one_bytes, one_ops = hist_bytes_ops(n, p, out, lanes, nn, nb,
+                                        codes.element_size())
+    return dict(E=E, shape=[n, p, out, lanes, nn, nb], ms=min(batched),
+                singles_ms=min(alone), single_ms=min(alone) / E,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                single_bound_ms=max(one_bytes / HBM_BYTES_PER_S,
+                                    one_ops / FP32_OPS_PER_S) * 1e3,
+                bytes=nbytes, ops=ops)
 
 
 def check_hist(device, exact_cases, card_cases, histogram=None):
@@ -1667,11 +1812,32 @@ def photons_config(**kw):
                         reg_lambda=1.0, **kw)
 
 
-def expected_hist_launches(art) -> int:
-    """One launch per level and one for the leaf sums, per round the
-    ensemble's loop ran (its longest lane), per ensemble."""
-    rounds = art.rounds_run.amax(dim=2).sum().item()
-    return int(rounds) * (art.config.max_depth + 1)
+def fit_groups(art, batch: int = 0):
+    """The groups of ensembles (``[(start, stop), ...]`` in grid order)
+    that the single-device route trained as one loop each: batches of
+    ``ensembles_per_batch`` (``batch``; 0, the default: 8, or the whole
+    grid if smaller), each cut by ``fitting.ensemble_groups``."""
+    from repro_torch.tabgen.fitting import ensemble_groups
+    cfg = art.config
+    n_ens = art.n_t * art.n_y
+    bs = batch or max(1, min(n_ens, 8))
+    lanes, p = art.rounds_run.shape[2], art.p
+    out = p if cfg.multi_output else 1
+    return [(b0 + a, b0 + b) for b0 in range(0, n_ens, bs)
+            for a, b in ensemble_groups(min(bs, n_ens - b0), lanes, p,
+                                        cfg.n_bins, out, cfg.max_depth)]
+
+
+def expected_hist_launches(art, groups=None) -> int:
+    """One launch per level and one for the leaf sums, per round a loop ran
+    (its longest lane), per loop: per group of ``groups`` (the
+    single-device route: :func:`fit_groups`), or per ensemble (None: the
+    sharded route, which fits one ensemble at a time)."""
+    rounds = art.rounds_run.reshape(art.n_t * art.n_y, -1)
+    if groups is None:
+        groups = [(e, e + 1) for e in range(rounds.shape[0])]
+    loops = sum(int(rounds[a:b].max()) for a, b in groups)
+    return loops * (art.config.max_depth + 1)
 
 
 def drive_training(device, ckpt_root):
@@ -1692,16 +1858,26 @@ def drive_training(device, ckpt_root):
         ckpt = os.path.join(ckpt_root, label)
         n_ens = cfg.n_t * len(classes)
         histogram.launches = 0
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         gen = TabularGenerator(cfg).fit(X, y, checkpoint_dir=ckpt,
                                         device=device)
         sync(device)
         dt = time.perf_counter() - t0
-        got, expect = histogram.launches, expected_hist_launches(gen.artifacts)
+        peak = (torch.cuda.max_memory_allocated()
+                if device.type == "cuda" else None)
+        groups = fit_groups(gen.artifacts)
+        got = histogram.launches
+        expect = expected_hist_launches(gen.artifacts, groups)
         launches += got
         log(f"fit {label}: {n_ens} ensembles of {FIT_ROWS} rows x {P} "
-            f"features, {dt:.2f} s, {dt / n_ens:.2f} s per ensemble, "
-            f"{got} hist launches (expected {expect})")
+            f"features in groups {groups}, {dt:.2f} s, {dt / n_ens:.2f} s "
+            f"per ensemble, device peak {peak} B, {got} hist launches "
+            f"(expected {expect}: one a "
+            f"level and one for the leaf sums, a round of a group; "
+            f"{expected_hist_launches(gen.artifacts)} one ensemble at a "
+            f"time)")
         on_card = device.type == "cuda"    # the CPU path launches nothing
         if on_card and (got != expect or got == 0):
             raise AssertionError(f"fit {label}: {got} hist launches, "
@@ -1728,6 +1904,67 @@ def drive_training(device, ckpt_root):
                              f"{forest_predict.launches} launches")
     log(f"generate 1000 rows from the trained MO model: finite, "
         f"{forest_predict.launches} tree_predict launches (n_t - 1)")
+    return launches + check_batches_at_width(device)
+
+
+# fits at photons width, each at the default batch and one ensemble a
+# batch: (label, the photons config's changes, classes); each default batch
+# is one group of 2 (SO at depth 7 would be groups of 1)
+BATCH_FITS = (("MO n_t=1 x 2 classes, 5 trees",
+               dict(n_t=1, multi_output=True, n_trees=5), (3, 10)),
+              ("SO n_t=2 x 1 class, depth 6, 4 trees",
+               dict(n_t=2, multi_output=False, max_depth=6, n_trees=4),
+               (6,)))
+
+
+def check_batches_at_width(device):
+    """The batch of a fit trains as one loop at photons width too: each
+    fit of BATCH_FITS at the default batch (one group of two ensembles)
+    equals, on every field, the same fit at ensembles_per_batch=1, and
+    launches hist once a level a round of the group. Logs seconds an
+    ensemble and the device peak of each. Returns the hist launches."""
+    from repro_torch.kernels.hist.ops import histogram
+    from repro_torch.tabgen import fit_artifacts
+    on_card = device.type == "cuda"
+    launches = 0
+    for label, kw, classes in BATCH_FITS:
+        cfg = dataclasses.replace(photons_config(), **kw)
+        X, y = calo_photons(np.repeat(np.array(classes), CLASS_ROWS), seed=3)
+        n_ens = cfg.n_t * len(classes)
+        fits = {}
+        for bs in (0, 1):
+            histogram.launches = 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            art = fit_artifacts(X, y, cfg, seed=4, device=device,
+                                ensembles_per_batch=bs)
+            sync(device)
+            dt = time.perf_counter() - t0
+            groups = fit_groups(art, bs)
+            expect = expected_hist_launches(art, groups)
+            got = histogram.launches
+            launches += got
+            peak = torch.cuda.max_memory_allocated() if on_card else None
+            fits[bs] = art
+            log(f"batch check {label}, ensembles_per_batch={bs or 'default'}"
+                f": groups {groups}, {dt!r} s, {dt / n_ens!r} s per ensemble, "
+                f"device peak {peak} B, {got} hist launches (expected "
+                f"{expect})")
+            if bs == 0 and max(b - a for a, b in groups) < 2:
+                raise AssertionError(f"batch check {label}: no group of "
+                                     f"two ensembles: {groups}")
+            if on_card and got != expect:
+                raise AssertionError(f"batch check {label}: {got} hist "
+                                     f"launches, expected {expect}")
+        if not same_model(fits[0], fits[1]):
+            raise AssertionError(f"batch check {label}: the batched fit "
+                                 "differs from one ensemble a batch")
+        log(f"batch check {label}: default batch == one ensemble a batch, "
+            "bit for bit on every field")
+        del fits
+        if on_card:
+            torch.cuda.empty_cache()
     return launches
 
 
@@ -1913,6 +2150,14 @@ def check_training_small(device):
             f"{err!r}")
         if not same or err > SMALL_TOL or stopped == 0:
             raise AssertionError("training: device and plain path disagree")
+        one = fit_artifacts(X, y, cfg, device=device, noise=cpu_noise,
+                            ensembles_per_batch=1)
+        if not same_model(a, one):
+            raise AssertionError("training: the default batch differs from "
+                                 "one ensemble a batch")
+        log(f"fit {'MO' if mo else 'SO'} two-moons on {device.type}, early "
+            f"stopping on: default batch (groups {fit_groups(a)}) == one "
+            "ensemble a batch, bit for bit on every field")
         cfg = dataclasses.replace(cfg, n_trees=8)
         cold = fit_artifacts(X, y, cfg, seed=5, device=device)
         base = fit_artifacts(X, y, dataclasses.replace(cfg, n_trees=5),
@@ -3988,6 +4233,18 @@ def _main() -> int:
     log("hist has no library yardstick: no single PyTorch call builds the "
         "histograms of all features without an [n*p, out] copy of g "
         "(87 GB at full width)")
+    hist_worst = max(hist_worst, check_hist_batches(device,
+                                                    hist_batch_cases()))
+    for key, E, (label, shape) in (("mo_level6", 3, full[1]),
+                                   ("so_level6", 2, full[2])):
+        n, p, out, lanes, nn, nb, dt = shape
+        hb = time_hist_batch(device, E, (n, p, out, lanes, nn, nb, dt))
+        hist_timing[f"batch_{key}"] = hb
+        log(f"hist {label} for a batch of {E} ensembles: one launch "
+            f"{hb['ms']!r} ms against {E} launches of one {hb['singles_ms']!r}"
+            f" ms ({hb['single_ms']!r} ms each); bound {hb['bound_ms']!r} ms "
+            f"({hb['bound_by']}: {hb['bytes']} bytes, {hb['ops']} adds), "
+            f"{hb['single_bound_ms']!r} ms each alone")
 
     fa_worst, fa_timing, fa_moe_timing = flash_phase(device)
 
@@ -4126,6 +4383,8 @@ def _main() -> int:
                       "hist_so_level6": hist_timing["so_level6"],
                       "hist_level6_int8": hist_timing["level6_int8"],
                       "hist_level6_256": hist_timing["level6_256"],
+                      "hist_batch": {k: hist_timing[f"batch_{k}"]
+                                     for k in ("mo_level6", "so_level6")},
                       "scaleout": dict(scaleout,
                                        hist_launches=scale_launches),
                       "flash_attention_bf16": dict(

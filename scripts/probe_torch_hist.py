@@ -25,8 +25,11 @@ PR 12's set:
   only written, or a group's reads before its writes (timed only).
 
 PR 15's set: ``phases`` (the adding warps' and the copying warp's),
-``no_add``, ``no_copy`` (chunks past the first ring not copied), and the
-same build launched with other tiles (``PR15["plans"]``).
+``no_add``, ``no_copy`` (chunks past the first ring not copied),
+``pop_if`` (the SO copier's row queue popped under a condition), and the
+same build launched with other tiles (``PR15["plans"]``). A parent whose
+``csrc/`` is older than the lane map of a batch of ensembles is driven
+through :class:`PreBatchLib`.
 
 Variants that compute the function (``exact``) are held, each in a
 subprocess with a time limit, to the plain version: bit-equal to it on the
@@ -261,15 +264,52 @@ class PreWindowLib:
         return self.lib.hist_launch_feats(*a[:16], *a[19:])
 
 
+class PreBatchLib:
+    """A library built from a ``csrc/`` older than the batches of
+    ensembles (codes of one ensemble, no lane map), called with the current
+    arguments for one ensemble: ``ens`` and ``E`` are dropped. ``inner`` is
+    the library, or a :class:`PreWindowLib` over an older one."""
+
+    def __init__(self, inner):
+        if not isinstance(inner, PreWindowLib):
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            for fn, args in (("hist_narrow",
+                              [ptr, i32, ptr] + [i32] * 7 + [ptr]),
+                             ("hist_launch_cols",
+                              [ptr, i32] + [ptr] * 8 + [i32] * 15 + [ptr]),
+                             ("hist_launch_feats",
+                              [ptr, i32] + [ptr] * 8 + [i32] * 10 + [ptr])):
+                getattr(inner, fn).argtypes = args
+                getattr(inner, fn).restype = i32
+        self.lib = inner
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def hist_narrow(self, *a):
+        return self.lib.hist_narrow(*a[:3], *a[4:])
+
+    def hist_launch_cols(self, *a):
+        return self.lib.hist_launch_cols(*a[:4], *a[5:12], *a[13:])
+
+    def hist_launch_feats(self, *a):
+        return self.lib.hist_launch_feats(*a[:4], *a[5:12], *a[13:])
+
+
 def pr15_launch(lib, name):
     """PR 15's design, with the tile of ``name``'s plan variant."""
-    from repro_torch.kernels.hist.ops import declare, launch, plan
-    if not isinstance(lib, PreWindowLib):
+    from repro_torch.kernels.hist.ops import bin_windows, declare, launch, plan
+    if not isinstance(lib, (PreWindowLib, PreBatchLib)):
         declare(lib)
 
     def run(codes, node_id, g, w, n_nodes, n_bins):
         kw = plan_kw(name, g.shape[2])
-        pl = plan(codes.shape[1], g.shape[2], n_bins, n_nodes, **kw)
+        pl = None                   # the launch's own tile for each window
+        if kw:
+            # the variant's tile, at the widest of the launch's bin windows
+            wide = max(b - a for a, b in bin_windows(
+                codes.shape[1], g.shape[2], n_bins, n_nodes))
+            pl = plan(codes.shape[1], g.shape[2], wide, n_nodes, **kw)
         return launch(lib, codes, node_id, g, w, n_nodes, n_bins, pl=pl)
     return run
 
@@ -391,6 +431,12 @@ PR15 = {
              + _PR15_SO_TMA.split("\n", 1)[1] + "        }\n"),
             ("      if (lane < R)\n        bulk_copy(",
              "      if (lane < R && k < S)\n        bulk_copy(")]),
+        # the SO copier pops its row queue only for a lane of a real
+        # ensemble (on an H100, 30% slower at SO level 6 than popping on
+        # every path)
+        ("pop_if", True, [
+            ("      const int row = ids.pop();\n",
+             "      const int row = real ? ids.pop() : -1;\n")]),
     ],
     # the same build launched with another tile: ops.plan's arguments, for
     # MO (out > 1) or SO (out = 1) launches; the other kind takes the plan
@@ -544,6 +590,8 @@ def hist_fn(path: str, name: str):
     lib = load(path)
     if launcher is pr15_launch and "bin_stride" not in text:
         lib = PreWindowLib(lib)
+    if launcher is pr15_launch and "const int* ens" not in text:
+        lib = PreBatchLib(lib)
     return launcher(lib, name)
 
 

@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of one ensemble fit of the PyTorch port goes, on a GPU.
+"""Where the time of one group fit of the PyTorch port goes, on a GPU.
 
     python3 scripts/profile_torch_training.py [--out DIR] [--trees N]
+        [--group E]
 
 At the width of ``chip_smoke.py``'s training phase (CaloForest photons:
 p=368, duplicate_k=20 over 8,000 rows of one class, so 160,000 rows;
-max_depth=7, n_bins=64), for one MO ensemble and one SO ensemble (368
-lanes):
+max_depth=7, n_bins=64), for one MO group and one SO group (368 lanes an
+ensemble), each of the ensembles that ``fit_artifacts`` trains as one loop
+(``fitting.ensemble_groups``: 3 MO, 1 SO at this width; ``--group E``
+sets E for both):
 
-* times the ensemble's set-up on the device (class block repeated,
-  bridge, edges, codes) and its boosting on the host clock, with a
-  ``torch.cuda.synchronize()`` after each, and splits the boosting rounds' time into ``build_histogram`` (the
-  ``hist`` kernel and its row ordering), ``best_splits`` (plain PyTorch)
-  and the rest (routing, leaf values, predictions, validation loss), by
-  wrapping the two functions with synchronising timers;
+* times the group's set-up on the device (class block repeated, bridge,
+  edges, codes, for each ensemble) and its boosting
+  (``boosting.fit_ensembles``) on the host clock, with a
+  ``torch.cuda.synchronize()`` after each, and splits the boosting
+  rounds' time into ``build_histogram`` (the ``hist`` kernel and its row
+  ordering), ``best_splits`` (plain PyTorch) and the rest (routing, leaf
+  values, predictions, validation loss), by wrapping the two functions
+  with synchronising timers; seconds an ensemble are the group's over E;
 * traces one boosting round with ``torch.profiler`` and reports the
   device's busy share and the kernels with the most device time.
 
@@ -84,13 +89,20 @@ def ensemble_inputs(cfg, block, seed=0):
             transform(xtv, edges), tgtv, w)
 
 
-def profile_ensemble(cfg, block):
-    """Host-clock split of one ensemble fit."""
+def group_inputs(cfg, block, E):
+    """E ensembles' inputs (each from its own seed), stacked as
+    ``boosting.fit_ensembles`` takes them."""
+    parts = [ensemble_inputs(cfg, block, seed=e) for e in range(E)]
+    return [torch.stack(a) for a in zip(*parts)]
+
+
+def profile_ensemble(cfg, block, E):
+    """Host-clock split of one group fit of E ensembles."""
     from repro_torch.forest import boosting, tree
     timers = Timers()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    args = ensemble_inputs(cfg, block)
+    args = group_inputs(cfg, block, E)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     saved = tree.build_histogram, tree.best_splits
@@ -98,7 +110,7 @@ def profile_ensemble(cfg, block):
     tree.best_splits = timers.wrap("best_splits", tree.best_splits)
     try:
         t0 = time.perf_counter()
-        res = boosting.fit_ensemble(*args, cfg)
+        res = boosting.fit_ensembles(*args, cfg)
         torch.cuda.synchronize()
         boost = time.perf_counter() - t0
     finally:
@@ -106,24 +118,26 @@ def profile_ensemble(cfg, block):
     rounds = int(res.rounds_run.max())
     split = dict(timers.seconds)
     split["rest"] = boost - sum(split.values())
-    return dict(setup_s=setup, boosting_s=boost, ensemble_s=setup + boost,
+    return dict(ensembles=E, setup_s=setup, boosting_s=boost,
+                group_s=setup + boost, ensemble_s=(setup + boost) / E,
                 rounds=rounds, per_tree_s=boost / rounds,
+                peak_bytes=torch.cuda.max_memory_allocated(),
                 boosting_split_s=split,
                 boosting_share={k: v / boost for k, v in split.items()})
 
 
-def trace_round(cfg, block):
-    """Profile one boosting round: busy share and top kernels."""
+def trace_round(cfg, block, E):
+    """Profile one boosting round of a group: busy share and top kernels."""
     from repro_torch.forest import boosting
     from torch.profiler import ProfilerActivity, profile
-    args = ensemble_inputs(cfg, block)
+    args = group_inputs(cfg, block, E)
     one = dataclasses.replace(cfg, n_trees=1)
-    boosting.fit_ensemble(*args, one)               # warm-up
+    boosting.fit_ensembles(*args, one)              # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        boosting.fit_ensemble(*args, one)
+        boosting.fit_ensembles(*args, one)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -144,13 +158,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="directory for the profiler tables")
     ap.add_argument("--trees", type=int, default=20)
+    ap.add_argument("--group", type=int, default=0,
+                    help="ensembles a group (default: fit_artifacts's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_training: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [os.path.join(REPO, "src"), REPO]
     import chip_smoke as cs
+    from repro_torch.forest.boosting import lanes_per_ensemble
     from repro_torch.kernels import build
+    from repro_torch.tabgen.fitting import ensemble_groups
 
     build.build(["hist"])                           # outside the timings
     if args.out:
@@ -161,9 +179,13 @@ def main() -> int:
     for label, mo in (("MO", True), ("SO", False)):
         cfg = cs.photons_config(n_t=1, multi_output=mo)
         cfg = dataclasses.replace(cfg, n_trees=args.trees)
+        E = args.group or ensemble_groups(
+            8, lanes_per_ensemble(cfg, cs.P), cs.P, cfg.n_bins,
+            cs.P if mo else 1, cfg.max_depth)[0][1]
         ensemble_inputs(cfg, block)                 # warm-up
-        summary = profile_ensemble(cfg, block)
-        summary["one_round"], table = trace_round(cfg, block)
+        torch.cuda.reset_peak_memory_stats()
+        summary = profile_ensemble(cfg, block, E)
+        summary["one_round"], table = trace_round(cfg, block, E)
         result[label] = summary
         print(label, json.dumps(summary), flush=True)
         if args.out:

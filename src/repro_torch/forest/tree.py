@@ -8,7 +8,11 @@ layout: internal node h has children 2h+1 / 2h+2; leaves are node ids in
 
 Every function takes a leading lane dimension ``S``: the SO outputs (one
 scalar-leaf tree each, all on the same codes) or the one MO tree
-(``S = 1``). The JAX package vmaps over the SO outputs instead.
+(``S = 1``), of one ensemble or of a batch of E. A batch gives each
+ensemble its own codes ``[E, n, p]``, weights ``[E, n]`` and edges ``[E,
+p, n_bins]``, and ``ens [S]`` names each lane's ensemble; the one-ensemble
+forms (``[n, p]``, ``[n]``, ``[p, n_bins]``, ``ens=None``) are E = 1. The
+JAX package vmaps over the SO outputs and over the batch instead.
 
 Sharded training: ``grow_tree(group=...)`` takes the process group of the
 data ranks, each of which holds its own rows. The histograms are reduced
@@ -27,6 +31,7 @@ import torch.distributed as dist
 
 from repro_torch.forest.hist import build_histogram
 from repro_torch.forest.split import best_splits
+from repro_torch.kernels.hist.ref import batched
 
 
 class Tree(NamedTuple):
@@ -36,11 +41,24 @@ class Tree(NamedTuple):
     leaf: torch.Tensor     # [S, 2^depth, out] f32 (learning-rate scaled)
 
 
-def _column(x, f):
-    """``x[i, f[s, i]]`` for x ``[n, p]``, f ``[S, n]`` -> ``[S, n]``."""
-    n, p = x.shape
-    rows = torch.arange(n, device=x.device) * p
-    return x.reshape(-1)[rows + f.long()]
+def _column(x, f, ens=None):
+    """``x[e, i, f[s, i]]`` with e = ``ens[s]`` for x ``[E, n, p]``, f
+    ``[S, n]`` -> ``[S, n]``; x ``[n, p]`` or ``[1, n, p]`` (or
+    ``ens=None``) reads ensemble 0."""
+    n, p = x.shape[-2:]
+    at = torch.arange(n, device=x.device) * p + f.long()
+    if ens is not None and x.numel() > n * p:
+        at = at + ens.long()[:, None] * (n * p)
+    return x.reshape(-1)[at]
+
+
+def as_batch(codes, w, edges_sentinel, ens, S: int):
+    """The one-ensemble forms as a batch of one (codes ``[1, n, p]``, w
+    ``[1, n]``, edges ``[1, p, n_bins]``, every lane on ensemble 0);
+    batched inputs pass through."""
+    if edges_sentinel.dim() == 2:
+        edges_sentinel = edges_sentinel[None]
+    return (*batched(codes, w, ens, S), edges_sentinel)
 
 
 def gather_leaves(leaf, node):
@@ -131,12 +149,14 @@ def grow_tree(codes, g, w, edges_sentinel, *, depth: int, n_bins: int,
               reg_lambda: float, min_child_weight: float,
               learning_rate: float, hist_bf16: bool = False,
               group: Optional[dist.ProcessGroup] = None,
-              split_reduce: str = "allreduce"):
+              split_reduce: str = "allreduce", ens=None):
     """Fit one regression tree per lane on gradients g.
 
-    codes ``[n, p]`` int; g ``[S, n, out]`` f32; w ``[n]`` f32 sample
-    weights; edges_sentinel ``[p, n_bins]`` f32 raw-value bin edges (+inf
-    last). Returns ``(Tree, node_id [S, n] int32)``, the leaf of every row.
+    codes ``[E, n, p]`` int; g ``[S, n, out]`` f32; w ``[E, n]`` f32 sample
+    weights; edges_sentinel ``[E, p, n_bins]`` f32 raw-value bin edges
+    (+inf last); ens ``[S]`` int, each lane's ensemble (or the
+    one-ensemble forms, see the module's note). Returns ``(Tree, node_id
+    [S, n] int32)``, the leaf of every row.
 
     ``hist_bf16`` rounds the histograms to bf16 before the split search, as
     the JAX package does on one device too. The leaf sums are one more
@@ -150,6 +170,8 @@ def grow_tree(codes, g, w, edges_sentinel, *, depth: int, n_bins: int,
     """
     S, n, out = g.shape
     dev = g.device
+    codes, w, ens, edges_sentinel = as_batch(codes, w, edges_sentinel, ens,
+                                             S)
     n_heap = 2 ** depth - 1
     feat_heap = torch.zeros((S, n_heap), dtype=torch.int32, device=dev)
     thr_heap = torch.full((S, n_heap), n_bins - 1, dtype=torch.int32,
@@ -158,7 +180,8 @@ def grow_tree(codes, g, w, edges_sentinel, *, depth: int, n_bins: int,
 
     for level in range(depth):
         n_nodes = 2 ** level
-        sum_g, count = build_histogram(codes, node_id, g, w, n_nodes, n_bins)
+        sum_g, count = build_histogram(codes, node_id, g, w, n_nodes, n_bins,
+                                       ens)
         feat_l, thr_l, _ = _reduced_best_splits(
             sum_g, count, reg_lambda, min_child_weight, group, split_reduce,
             hist_bf16)                                         # [S, n_nodes]
@@ -167,42 +190,45 @@ def grow_tree(codes, g, w, edges_sentinel, *, depth: int, n_bins: int,
         feat_heap[:, lo:lo + n_nodes] = feat_l
         thr_heap[:, lo:lo + n_nodes] = thr_l
         node = node_id.long()
-        c_i = _column(codes, torch.gather(feat_l, 1, node))
+        c_i = _column(codes, torch.gather(feat_l, 1, node), ens)
         go_right = c_i > torch.gather(thr_l, 1, node)
         node_id = node_id * 2 + go_right.to(torch.int32)
 
     # leaf values: Newton step -G/(H + lambda), lr-scaled
     n_leaves = 2 ** depth
-    zeros = torch.zeros((n, 1), dtype=torch.int8, device=dev)
-    leaf_g, leaf_h = build_histogram(zeros, node_id, g, w, n_leaves, 1)
+    zeros = torch.zeros((codes.shape[0], n, 1), dtype=torch.int8, device=dev)
+    leaf_g, leaf_h = build_histogram(zeros, node_id, g, w, n_leaves, 1, ens)
     leaf_g = all_reduce_sum(leaf_g.reshape(S, n_leaves, out), group)
     leaf_h = all_reduce_sum(leaf_h.reshape(S, n_leaves), group)
     leaf = -learning_rate * leaf_g / (leaf_h[..., None] + reg_lambda + 1e-12)
-    thr_val = edges_sentinel[feat_heap.long(), thr_heap.long()]
+    thr_val = edges_sentinel[ens.long()[:, None], feat_heap.long(),
+                             thr_heap.long()]
     return Tree(feat_heap, thr_heap, thr_val, leaf), node_id
 
 
-def predict_tree_codes(codes, tree: Tree, depth: int):
-    """Traverse by bin codes (training time). codes ``[n, p]``; returns
-    ``[S, n, out]``."""
+def predict_tree_codes(codes, tree: Tree, depth: int, ens=None):
+    """Traverse by bin codes (training time). codes ``[n, p]``, or ``[E,
+    n, p]`` with ens ``[S]`` each lane's ensemble; returns ``[S, n,
+    out]``."""
     S = tree.feat.shape[0]
-    node = torch.zeros((S, codes.shape[0]), dtype=torch.long,
+    node = torch.zeros((S, codes.shape[-2]), dtype=torch.long,
                        device=codes.device)
     for level in range(depth):
         heap = node + (2 ** level - 1)
-        c = _column(codes, torch.gather(tree.feat, 1, heap))
+        c = _column(codes, torch.gather(tree.feat, 1, heap), ens)
         node = node * 2 + (c > torch.gather(tree.thr_bin, 1, heap))
     return gather_leaves(tree.leaf, node)
 
 
-def predict_tree_values(x, feat, thr_val, leaf, depth: int):
-    """Traverse by raw values. x ``[n, p]``; feat/thr_val ``[S, H]``; leaf
-    ``[S, L, out]``. Returns ``[S, n, out]``; a row goes right iff
-    ``x > thr_val`` (strict, so +inf never goes right)."""
+def predict_tree_values(x, feat, thr_val, leaf, depth: int, ens=None):
+    """Traverse by raw values. x ``[n, p]``, or ``[E, n, p]`` with ens
+    ``[S]`` each lane's ensemble; feat/thr_val ``[S, H]``; leaf ``[S, L,
+    out]``. Returns ``[S, n, out]``; a row goes right iff ``x > thr_val``
+    (strict, so +inf never goes right)."""
     S = feat.shape[0]
-    node = torch.zeros((S, x.shape[0]), dtype=torch.long, device=x.device)
+    node = torch.zeros((S, x.shape[-2]), dtype=torch.long, device=x.device)
     for level in range(depth):
         heap = node + (2 ** level - 1)
-        c = _column(x, torch.gather(feat, 1, heap))
+        c = _column(x, torch.gather(feat, 1, heap), ens)
         node = node * 2 + (c > torch.gather(thr_val, 1, heap))
     return gather_leaves(leaf, node)

@@ -7,13 +7,22 @@
 // add in shared memory: a one-hot product on the tensor cores would do 64x
 // the adds, and would not add a cell's rows one after another in row order.
 //
-// Inputs (ops.launch): codes [n, p] (int8/16/32), g [S, n, out] f32, w [n]
-// f32, and the node-ordered layout of each lane's rows (ops.node_layout):
+// Inputs (ops.launch): codes [E, n, p] (int8/16/32), one set for each of
+// the E ensembles of a batch, g [S, n, out] f32, w [E, n] f32, ens [S]
+// (the ensemble of each lane), and the node-ordered layout of each lane's
+// rows (ops.node_layout):
 // src [S, L] (the row at each position, -1 for padding) and offsets [S,
 // n_nodes + 1] (node k owns positions offsets[k] : offsets[k + 1], from a
 // multiple of 32, in whole chunks of 32). Outputs: sum_g [S, n_nodes, p,
-// n_bins, out] (sums of w_i·g[s, i, :]) and count [S, n_nodes, p, n_bins]
-// (sums of w_i).
+// n_bins, out] (sums of w[e, i]·g[s, i, :], e = ens[s]) and count [S,
+// n_nodes, p, n_bins] (sums of w[e, i]).
+//
+// Batches. Lane s reads the codes and weights of its ensemble ens[s]; only
+// the layout passes and the SO copier's row address see it. The tiles, the
+// node layout and the order of the adds do not depend on E or on which
+// lanes share a launch, so a lane's cells are the same bits as when its
+// ensemble is launched alone. A lane whose ens lies outside [0, E) adds
+// only zeros: its histograms are 0.
 //
 // Exactness. The counts are one more output column whose value is w_i. A
 // thread owns the cells of its (feature, column), for every bin, and adds
@@ -234,44 +243,52 @@ __device__ __forceinline__ void sts2(uint32_t a, float2 v) {
 // MO values: vals[s][i][c] = g·w (c < out), w (c = out) or 0 of row
 // src[s][i]; 0 for padding. A warp a position.
 __global__ void layout_vals_kernel(const int* __restrict__ src,
+                                   const int* __restrict__ ens,
                                    const float* __restrict__ g,
                                    const float* __restrict__ w,
-                                   float* __restrict__ vals, int n, int L,
-                                   int out, int out_pad) {
+                                   float* __restrict__ vals, int E, int n,
+                                   int L, int out, int out_pad) {
   const int i = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const long long s = blockIdx.y;
   if (i >= L) return;
   float* dst = vals + (s * L + i) * out_pad;
-  const int o = __ldg(src + s * L + i);
+  const int e = __ldg(ens + s);
+  const int o = e >= 0 && e < E ? __ldg(src + s * L + i) : -1;
   if (o < 0) {
     for (int c = lane; c < out_pad; c += kWarp) dst[c] = 0.0f;
     return;
   }
-  const float wr = __ldg(w + o);
+  const float wr = __ldg(w + (long long)e * n + o);
   const float* grow = g + (s * n + o) * out;
   for (int c = lane; c < out_pad; c += kWarp)
     dst[c] = c < out ? __fmul_rn(__ldg(grow + c), wr) : c == out ? wr : 0.0f;
 }
 
-// MO codes, transposed: codes_t[s][j][i] = the code of row src[s][i],
-// feature j, less lo, or n_bins where that lies outside [0, n_bins) (the
-// window's bins), and for padding. Tiles of 32 x 32 through shared memory.
+// MO codes, transposed: codes_t[s][j][i] = the code of row src[s][i] of
+// ensemble ens[s], feature j, less lo, or n_bins where that lies outside
+// [0, n_bins) (the window's bins), and for padding. Tiles of 32 x 32
+// through shared memory.
 template <typename InT>
 __global__ void layout_codes_kernel(const InT* __restrict__ codes,
                                     const int* __restrict__ src,
-                                    uint8_t* __restrict__ codes_t, int L,
-                                    int p, int p_pad, int n_bins, int lo) {
+                                    const int* __restrict__ ens,
+                                    uint8_t* __restrict__ codes_t, int E,
+                                    int n, int L, int p, int p_pad,
+                                    int n_bins, int lo) {
   __shared__ uint8_t t[32][33];
   const int i0 = blockIdx.x * 32, j0 = blockIdx.y * 32;
   const long long s = blockIdx.z;
   const int tx = threadIdx.x, ty = threadIdx.y;
+  const int e = __ldg(ens + s);
+  const bool real = e >= 0 && e < E;
   for (int r = ty; r < 32; r += blockDim.y) {
     const int i = i0 + r, j = j0 + tx;
-    const int o = i < L ? __ldg(src + s * L + i) : -1;
+    const int o = real && i < L ? __ldg(src + s * L + i) : -1;
     int v = n_bins;
     if (o >= 0 && j < p) {
-      const int c = (int)__ldg(codes + (long long)o * p + j) - lo;
+      const int c =
+          (int)__ldg(codes + ((long long)e * n + o) * p + j) - lo;
       if (c >= 0 && c < n_bins) v = c;
     }
     t[r][tx] = (uint8_t)v;
@@ -283,19 +300,22 @@ __global__ void layout_codes_kernel(const InT* __restrict__ codes,
   }
 }
 
-// SO g and w: gs[s][i] = g[s][src[s][i]], ws[s][i] = w[src[s][i]]; 0 for
-// padding.
+// SO g and w: gs[s][i] = g[s][src[s][i]], ws[s][i] = w[ens[s]][src[s][i]];
+// 0 for padding.
 __global__ void layout_rows_kernel(const int* __restrict__ src,
+                                   const int* __restrict__ ens,
                                    const float* __restrict__ g,
                                    const float* __restrict__ w,
                                    float* __restrict__ gs,
-                                   float* __restrict__ ws, int n, int L) {
+                                   float* __restrict__ ws, int E, int n,
+                                   int L) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const long long s = blockIdx.y;
   if (i >= L) return;
-  const int o = __ldg(src + s * L + i);
+  const int e = __ldg(ens + s);
+  const int o = e >= 0 && e < E ? __ldg(src + s * L + i) : -1;
   gs[s * L + i] = o < 0 ? 0.0f : __ldg(g + s * n + o);
-  ws[s * L + i] = o < 0 ? 0.0f : __ldg(w + o);
+  ws[s * L + i] = o < 0 ? 0.0f : __ldg(w + (long long)e * n + o);
 }
 
 // -- MO: W warps of K features each, over 32 columns ----------------------------
@@ -465,9 +485,10 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
                   const uint8_t* __restrict__ codes, int code_stride,
                   const int* __restrict__ src,
                   const int* __restrict__ offsets,
+                  const int* __restrict__ ens,
                   float* __restrict__ sum_g, float* __restrict__ count,
-                  int n, int len, int p, int n_nodes, int n_bins, int lo,
-                  int bin_stride, int vec_out) {
+                  int E, int n, int len, int p, int n_nodes, int n_bins,
+                  int lo, int bin_stride, int vec_out) {
   constexpr int R = kFeatsRows, S = kFeatsStages;
   extern __shared__ __align__(128) unsigned char smem[];
   const int T = blockDim.x;
@@ -509,9 +530,17 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
   const int chunks = (end - begin) / R;
 
   if (warp == W) {
-    // the copier: each chunk's codes, one bulk copy a row (padding rows
-    // copy row n, all spare), and its g and w, one TMA box each, up to S
-    // chunks ahead of the adders
+    // the copier: each chunk's codes, one bulk copy a row of the lane's
+    // ensemble's narrowed codes (padding rows copy row n, all spare; a
+    // lane with no ensemble reads ensemble 0's, and adds the zeros its
+    // layout pass wrote), and its g and w, one TMA box each, up to S
+    // chunks ahead of the adders. The row queue pops on every path: a
+    // pop under a condition made a SO level 6 launch at photons width 30%
+    // slower on an H100 (43.6 against 33.4 ms)
+    const int e = __ldg(ens + s);
+    const bool real = e >= 0 && e < E;
+    const uint8_t* ens_codes =
+        codes + (real ? (long long)e * (n + 1) * code_stride : 0);
     RowQueue ids(src + (long long)s * len, begin, end, R, lane);
     for (int k = 0; k < chunks; ++k) {
       const int st = k % S;
@@ -526,7 +555,8 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
       __syncwarp();
       if (lane < R)
         bulk_copy(stage_c(st) + lane * FT,
-                  codes + (long long)(row < 0 ? n : row) * code_stride + j0,
+                  ens_codes + (long long)(row < 0 ? n : row) * code_stride +
+                      j0,
                   FT, full(st));
     }
   } else {
@@ -609,10 +639,10 @@ hist_feats_kernel(const __grid_constant__ CUtensorMap tm_g,
 
 // -- the narrowing pass -------------------------------------------------------
 
-// o[i, t * tile + q] = code (i, t * feats + q) less lo for q < feats,
-// j < p, that in [0, n_bins) (the window's bins); else n_bins, and all of
-// row n (the spare row that padding positions copy). Grid: x over a row's
-// stride, y over rows
+// o[e, i, t * tile + q] = code (e, i, t * feats + q) less lo for q <
+// feats, j < p, that in [0, n_bins) (the window's bins); else n_bins, and
+// all of row n (the spare row that padding positions copy). Grid: x over a
+// row's stride, y over rows, z over the ensembles
 template <typename InT>
 __global__ void narrow_kernel(const InT* __restrict__ in,
                               uint8_t* __restrict__ o, int n, int p,
@@ -620,6 +650,8 @@ __global__ void narrow_kernel(const InT* __restrict__ in,
                               int lo) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   if (x >= stride) return;
+  in += (long long)blockIdx.z * n * p;
+  o += (long long)blockIdx.z * (n + 1) * stride;
   const int q = x % tile;
   const int j = (x / tile) * feats + q;
   const bool real = q < feats && j < p;
@@ -634,11 +666,12 @@ __global__ void narrow_kernel(const InT* __restrict__ in,
 }
 
 template <typename InT>
-int narrow_from(const void* in, void* o, int n, int p, int feats, int tile,
-                int stride, int n_bins, int lo, cudaStream_t st) {
-  if (stride == 0) return 0;
+int narrow_from(const void* in, void* o, int E, int n, int p, int feats,
+                int tile, int stride, int n_bins, int lo, cudaStream_t st) {
+  if (stride == 0 || E == 0) return 0;
   const int threads = 128;
-  const dim3 blocks((stride + threads - 1) / threads, n < 8192 ? n + 1 : 8192);
+  const dim3 blocks((stride + threads - 1) / threads,
+                    n < 8192 ? n + 1 : 8192, E);
   narrow_kernel<InT><<<blocks, threads, 0, st>>>(
       static_cast<const InT*>(in), static_cast<uint8_t*>(o), n, p, feats,
       tile, stride, n_bins, lo);
@@ -700,24 +733,24 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
 
 extern "C" {
 
-// Writes codes [n, p] (code_bytes 1, 2 or 4, signed) as u8 [n + 1, stride]
-// in tiles: feature t * feats + q at column t * tile + q; each code less
-// lo, or n_bins (the window's spare bin) where that lies outside [0,
-// n_bins), in the padding and in all of row n. Returns a cudaError_t as an
-// int.
-int hist_narrow(const void* codes, int code_bytes, void* out, int n, int p,
-                int feats, int tile, int stride, int n_bins, int lo,
+// Writes each of the E ensembles' codes [E, n, p] (code_bytes 1, 2 or 4,
+// signed) as u8 [E, n + 1, stride] in tiles: feature t * feats + q at
+// column t * tile + q; each code less lo, or n_bins (the window's spare
+// bin) where that lies outside [0, n_bins), in the padding and in all of
+// row n. Returns a cudaError_t as an int.
+int hist_narrow(const void* codes, int code_bytes, void* out, int E, int n,
+                int p, int feats, int tile, int stride, int n_bins, int lo,
                 void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (feats < 1 || tile < feats || n_bins < 1 || n_bins > kByteBins ||
-      lo < 0)
+      lo < 0 || E < 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
   switch (code_bytes) {
-    case 1: return narrow_from<int8_t>(codes, out, n, p, feats, tile, stride,
-                                       n_bins, lo, st);
-    case 2: return narrow_from<int16_t>(codes, out, n, p, feats, tile,
+    case 1: return narrow_from<int8_t>(codes, out, E, n, p, feats, tile,
+                                       stride, n_bins, lo, st);
+    case 2: return narrow_from<int16_t>(codes, out, E, n, p, feats, tile,
                                         stride, n_bins, lo, st);
-    case 4: return narrow_from<int32_t>(codes, out, n, p, feats, tile,
+    case 4: return narrow_from<int32_t>(codes, out, E, n, p, feats, tile,
                                         stride, n_bins, lo, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -725,21 +758,22 @@ int hist_narrow(const void* codes, int code_bytes, void* out, int n, int p,
 
 // MO: the layout pass and the kernel. `src` [S, L] (L a multiple of 32)
 // gives the row at each position of the node-ordered layout, -1 for
-// padding, and `offsets` [S, n_nodes + 1] each node's positions (from a
-// multiple of 32, in whole chunks of 32; ops.node_layout). Writes vals
-// [S, L, out_pad] f32 (g·w, then w, then 0) and codes_t [S, p_pad, L] u8
-// (the codes of the window [lo, lo + n_bins), transposed), then launches
-// blocks of `warps` warps of `per` (1 or 2) features each, with a ring of
-// `stages` (2-4) chunks, writing bins lo ... of sum_g and count, whose
-// rows hold bin_stride bins. `layout_vals` 0 keeps vals as an earlier
-// window's pass wrote them. Returns a cudaError_t as an int.
+// padding, `offsets` [S, n_nodes + 1] each node's positions (from a
+// multiple of 32, in whole chunks of 32; ops.node_layout) and `ens` [S]
+// each lane's ensemble, whose codes [E, n, p] and w [E, n] it reads.
+// Writes vals [S, L, out_pad] f32 (g·w, then w, then 0) and codes_t [S,
+// p_pad, L] u8 (the codes of the window [lo, lo + n_bins), transposed),
+// then launches blocks of `warps` warps of `per` (1 or 2) features each,
+// with a ring of `stages` (2-4) chunks, writing bins lo ... of sum_g and
+// count, whose rows hold bin_stride bins. `layout_vals` 0 keeps vals as
+// an earlier window's pass wrote them. Returns a cudaError_t as an int.
 int hist_launch_cols(const void* codes, int code_bytes, const int* src,
-                     const int* offsets, const float* g, const float* w,
-                     float* vals, uint8_t* codes_t, float* sum_g,
-                     float* count, int S, int n, int L, int p, int p_pad,
-                     int out, int out_pad, int n_nodes, int n_bins, int lo,
-                     int bin_stride, int layout_vals, int warps, int per,
-                     int stages, void* stream) {
+                     const int* offsets, const int* ens, const float* g,
+                     const float* w, float* vals, uint8_t* codes_t,
+                     float* sum_g, float* count, int S, int E, int n, int L,
+                     int p, int p_pad, int out, int out_pad, int n_nodes,
+                     int n_bins, int lo, int bin_stride, int layout_vals,
+                     int warps, int per, int stages, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int feats = warps * per;
   const ColsLayout Lay(n_bins, feats, stages);
@@ -748,29 +782,30 @@ int hist_launch_cols(const void* codes, int code_bytes, const int* src,
       n_bins > kByteBins || lo < 0 || lo + n_bins > bin_stride ||
       (per != 1 && per != 2) || feats > 256 || stages < 2 ||
       stages > kColsMaxStages || L % kColsRows || out_pad % 4 ||
-      out_pad <= out || p_pad < tiles * feats || Lay.bytes() > kMaxSmem)
+      out_pad <= out || p_pad < tiles * feats || Lay.bytes() > kMaxSmem ||
+      E < 1)
     return (int)cudaErrorInvalidValue;
   if (L > 0) {
     if (layout_vals)
       layout_vals_kernel<<<dim3((L + 7) / 8, S), 256, 0, st>>>(
-          src, g, w, vals, n, L, out, out_pad);
+          src, ens, g, w, vals, E, n, L, out, out_pad);
     const dim3 grid((L + 31) / 32, (p_pad + 31) / 32, S);
     const dim3 block(32, 8);
     switch (code_bytes) {
       case 1:
         layout_codes_kernel<int8_t><<<grid, block, 0, st>>>(
-            static_cast<const int8_t*>(codes), src, codes_t, L, p, p_pad,
-            n_bins, lo);
+            static_cast<const int8_t*>(codes), src, ens, codes_t, E, n, L, p,
+            p_pad, n_bins, lo);
         break;
       case 2:
         layout_codes_kernel<int16_t><<<grid, block, 0, st>>>(
-            static_cast<const int16_t*>(codes), src, codes_t, L, p, p_pad,
-            n_bins, lo);
+            static_cast<const int16_t*>(codes), src, ens, codes_t, E, n, L, p,
+            p_pad, n_bins, lo);
         break;
       case 4:
         layout_codes_kernel<int32_t><<<grid, block, 0, st>>>(
-            static_cast<const int32_t*>(codes), src, codes_t, L, p, p_pad,
-            n_bins, lo);
+            static_cast<const int32_t*>(codes), src, ens, codes_t, E, n, L, p,
+            p_pad, n_bins, lo);
         break;
       default:
         return (int)cudaErrorInvalidValue;
@@ -803,26 +838,27 @@ int hist_launch_cols(const void* codes, int code_bytes, const int* src,
 }
 
 // SO (out = 1): the layout pass of g and w and the kernel, over the same
-// node-ordered layout (`src`, `offsets`). Writes gs, ws [S, L] f32 (g and
-// w, 0 for padding; `layout_rows` 0 keeps them as an earlier window's pass
-// wrote them), then launches `warps` adding warps and one copying warp a
-// block over them and the codes of the window [lo, lo + n_bins) from
-// hist_narrow (n + 1 rows of code_stride, row n all spare), writing bins
-// lo ... of sum_g and count, whose rows hold bin_stride bins. Returns a
-// cudaError_t as an int.
+// node-ordered layout (`src`, `offsets`; `ens` [S] each lane's ensemble,
+// whose w [E, n] it reads). Writes gs, ws [S, L] f32 (g and w, 0 for
+// padding; `layout_rows` 0 keeps them as an earlier window's pass wrote
+// them), then launches `warps` adding warps and one copying warp a block
+// over them and the codes of the window [lo, lo + n_bins) from hist_narrow
+// ([E, n + 1, code_stride], row n all spare), writing bins lo ... of
+// sum_g and count, whose rows hold bin_stride bins. Returns a cudaError_t
+// as an int.
 int hist_launch_feats(const void* codes, int code_stride, const int* src,
-                      const int* offsets, const float* g, const float* w,
-                      float* gs, float* ws, float* sum_g, float* count, int S,
-                      int n, int L, int p, int n_nodes, int n_bins, int lo,
-                      int bin_stride, int layout_rows, int warps,
-                      void* stream) {
+                      const int* offsets, const int* ens, const float* g,
+                      const float* w, float* gs, float* ws, float* sum_g,
+                      float* count, int S, int E, int n, int L, int p,
+                      int n_nodes, int n_bins, int lo, int bin_stride,
+                      int layout_rows, int warps, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const FeatsLayout Lay(n_bins, warps);
   const int tiles = (p + Lay.row_bytes - 1) / Lay.row_bytes;
   if (warps < 1 || (warps + 1) * kWarp > kMaxThreads || n_bins < 1 ||
       n_bins > kByteBins || lo < 0 || lo + n_bins > bin_stride ||
       L % kColsRows || code_stride % 16 ||
-      code_stride < tiles * Lay.row_bytes || Lay.bytes() > kMaxSmem)
+      code_stride < tiles * Lay.row_bytes || Lay.bytes() > kMaxSmem || E < 1)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tm_g, tm_w;
   const cuuint64_t dims[2] = {(cuuint64_t)L, (cuuint64_t)S};
@@ -831,7 +867,7 @@ int hist_launch_feats(const void* codes, int code_stride, const int* src,
   if (L > 0) {
     if (layout_rows)
       layout_rows_kernel<<<dim3((L + 255) / 256, S), 256, 0, st>>>(
-          src, g, w, gs, ws, n, L);
+          src, ens, g, w, gs, ws, E, n, L);
     if (!make_map(&tm_g, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, gs, dims,
                   strides, box) ||
         !make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ws, dims,
@@ -846,8 +882,8 @@ int hist_launch_feats(const void* codes, int code_stride, const int* src,
   hist_feats_kernel<<<dim3(tiles, n_nodes, S), (warps + 1) * kWarp,
                       Lay.bytes(), st>>>(
       tm_g, tm_w, static_cast<const uint8_t*>(codes), code_stride, src,
-      offsets, sum_g, count, n, L, p, n_nodes, n_bins, lo, bin_stride,
-      vec_out);
+      offsets, ens, sum_g, count, E, n, L, p, n_nodes, n_bins, lo,
+      bin_stride, vec_out);
   return (int)cudaGetLastError();
 }
 

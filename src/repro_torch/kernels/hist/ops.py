@@ -20,6 +20,12 @@ is one byte in the kernel, so more than ``BYTE_BINS`` bins are split into
 contiguous windows (:func:`bin_windows`): one pass of the kernel each, over
 the same node layout, each writing its bins straight into the full output.
 The plain functions are held by the CPU tests.
+
+A launch may hold the lanes of several ensembles (a batch of the fit):
+each ensemble has its own codes and weights, ``codes [E, n, p]`` and ``w
+[E, n]``, and ``ens [S]`` names each lane's ensemble. The kernel reads a
+lane's rows from its ensemble's slice and changes nothing else: a lane's
+cells add the same rows in the same order whatever lanes share the launch.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.hist.ref import histogram_ref
+from repro_torch.kernels.hist.ref import batched, histogram_ref
 
 CODE_DTYPES = (torch.int8, torch.int16, torch.int32)
 _GRID_YZ = 65535       # CUDA's limit on gridDim.y (nodes) and gridDim.z (S)
@@ -178,10 +184,13 @@ def blocks(pl: Plan, S: int, p: int, out: int, n_nodes: int):
 def narrow_codes(codes, n_bins: int, pl: Plan, lo: int = 0):
     """Plain version of the kernel's narrowing pass (``hist_narrow``, SO)
     for the window ``[lo, lo + n_bins)``: codes ``[n, p]`` -> ``[n + 1,
-    pl.code_stride]`` uint8, feature ``t · feats + q`` at column ``t · tile
-    + q``: each code less lo, or n_bins where that lies outside [0, n_bins),
-    in the padding and in all of row n (the row that padding positions of
-    the node layout read)."""
+    pl.code_stride]`` uint8 (``[E, n, p]`` -> ``[E, n + 1,
+    pl.code_stride]``, each ensemble's codes on their own), feature ``t ·
+    feats + q`` at column ``t · tile + q``: each code less lo, or n_bins
+    where that lies outside [0, n_bins), in the padding and in all of row n
+    (the row that padding positions of the node layout read)."""
+    if codes.dim() == 3:
+        return torch.stack([narrow_codes(c, n_bins, pl, lo) for c in codes])
     n, p = codes.shape
     shifted = codes.to(torch.int32) - lo
     inside = (shifted >= 0) & (shifted < n_bins)
@@ -236,43 +245,47 @@ def _lib() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launch functions' C signatures on a built library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn, args in (("hist_narrow", [ptr, i32, ptr] + [i32] * 7 + [ptr]),
+    for fn, args in (("hist_narrow", [ptr, i32, ptr] + [i32] * 8 + [ptr]),
                      ("hist_launch_cols",
-                      [ptr, i32] + [ptr] * 8 + [i32] * 15 + [ptr]),
+                      [ptr, i32] + [ptr] * 9 + [i32] * 16 + [ptr]),
                      ("hist_launch_feats",
-                      [ptr, i32] + [ptr] * 8 + [i32] * 10 + [ptr])):
+                      [ptr, i32] + [ptr] * 9 + [i32] * 11 + [ptr])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i32
     return lib
 
 
-def _check(codes, node_id, g, w, n_nodes: int, n_bins: int) -> None:
+def _check(codes, node_id, g, w, ens, n_nodes: int, n_bins: int) -> None:
     if codes.dtype not in CODE_DTYPES:
         raise TypeError(f"codes must be int8, int16 or int32, got {codes.dtype}")
     for name, t, dtype in (("node_id", node_id, torch.int32),
-                           ("g", g, torch.float32), ("w", w, torch.float32)):
+                           ("g", g, torch.float32), ("w", w, torch.float32),
+                           ("ens", ens, torch.int32)):
         if t.dtype != dtype:
             raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     for name, t in (("codes", codes), ("node_id", node_id), ("g", g),
-                    ("w", w)):
+                    ("w", w), ("ens", ens)):
         if t.device != g.device:
             raise ValueError(f"{name} is on {t.device}, g on {g.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if codes.dim() != 2 or node_id.dim() != 2 or g.dim() != 3 or w.dim() != 1:
+    if (codes.dim() != 3 or node_id.dim() != 2 or g.dim() != 3
+            or w.dim() != 2 or ens.dim() != 1):
         raise ValueError(
-            f"expected codes [n,p], node_id [S,n], g [S,n,out], w [n]; got "
-            f"{tuple(codes.shape)}, {tuple(node_id.shape)}, {tuple(g.shape)}, "
-            f"{tuple(w.shape)}")
-    n = codes.shape[0]
+            f"expected codes [E,n,p], node_id [S,n], g [S,n,out], w [E,n], "
+            f"ens [S]; got {tuple(codes.shape)}, {tuple(node_id.shape)}, "
+            f"{tuple(g.shape)}, {tuple(w.shape)}, {tuple(ens.shape)}")
+    E, n = codes.shape[:2]
     S = node_id.shape[0]
-    if node_id.shape[1] != n or tuple(g.shape[:2]) != (S, n) or w.shape[0] != n:
+    if (node_id.shape[1] != n or tuple(g.shape[:2]) != (S, n)
+            or tuple(w.shape) != (E, n) or ens.shape[0] != S):
         raise ValueError(
-            f"row counts disagree: codes {tuple(codes.shape)}, node_id "
-            f"{tuple(node_id.shape)}, g {tuple(g.shape)}, w {tuple(w.shape)}")
-    if n_nodes < 1 or n_bins < 1 or g.shape[2] < 1:
+            f"shapes disagree: codes {tuple(codes.shape)}, node_id "
+            f"{tuple(node_id.shape)}, g {tuple(g.shape)}, w {tuple(w.shape)}"
+            f", ens {tuple(ens.shape)}")
+    if n_nodes < 1 or n_bins < 1 or g.shape[2] < 1 or E < 1:
         raise ValueError(f"n_nodes={n_nodes}, n_bins={n_bins}, out="
-                         f"{g.shape[2]}: each must be >= 1")
+                         f"{g.shape[2]}, E={E}: each must be >= 1")
 
 
 def node_order(node_id, n_nodes: int):
@@ -293,38 +306,48 @@ def node_order(node_id, n_nodes: int):
     return order.to(torch.int32), offsets
 
 
-def histogram(codes, node_id, g, w, n_nodes: int, n_bins: int):
-    """codes ``[n, p]`` int8/int16/int32 in ``[0, n_bins)``, shared by all
-    lanes; node_id ``[S, n]`` i32 in ``[0, n_nodes)``; g ``[S, n, out]`` f32;
-    w ``[n]`` f32 -> ``(sum_g [S, n_nodes, p, n_bins, out], count [S,
-    n_nodes, p, n_bins])`` f32, as :func:`.ref.histogram_ref`.
+def histogram(codes, node_id, g, w, n_nodes: int, n_bins: int, ens=None):
+    """codes ``[E, n, p]`` int8/int16/int32 in ``[0, n_bins)``, one set an
+    ensemble; node_id ``[S, n]`` i32 in ``[0, n_nodes)``; g ``[S, n, out]``
+    f32; w ``[E, n]`` f32; ens ``[S]`` i32, each lane's ensemble, in ``[0,
+    E)`` -> ``(sum_g [S, n_nodes, p, n_bins, out], count [S, n_nodes, p,
+    n_bins])`` f32, as :func:`.ref.histogram_ref`. ``codes [n, p]``, ``w
+    [n]`` and ``ens=None`` are one ensemble that every lane shares.
 
-    MO trees call it with ``S = 1, out = p``; SO trees with one lane per
-    output, ``S = p, out = 1``.
+    An MO tree is one lane with ``out = p``; an SO ensemble is p lanes with
+    ``out = 1``. A batch of E ensembles is their lanes side by side, in any
+    order (the boosting loop narrows them to the active ones).
     """
-    _check(codes, node_id, g, w, n_nodes, n_bins)
-    return _histogram_op(codes, node_id, g, w, n_nodes, n_bins)
+    codes, w, ens = batched(codes, w, ens, node_id.shape[0])
+    _check(codes, node_id, g, w, ens, n_nodes, n_bins)
+    return _histogram_op(codes, node_id, g, w, ens, n_nodes, n_bins)
 
 
 @torch.library.custom_op("repro_torch::histogram", mutates_args=())
 def _histogram_op(codes: torch.Tensor, node_id: torch.Tensor,
-                  g: torch.Tensor, w: torch.Tensor, n_nodes: int,
-                  n_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
+                  g: torch.Tensor, w: torch.Tensor, ens: torch.Tensor,
+                  n_nodes: int, n_bins: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`histogram` on checked inputs: the plain version for a CPU
     tensor, the kernel for a CUDA tensor."""
     if g.device.type == "cpu":
-        return histogram_ref(codes, node_id, g, w, n_nodes, n_bins)
+        # a CUDA map is not read back (no sync): the kernel gives a lane
+        # outside [0, E) no rows
+        if ens.numel() and not (int(ens.min()) >= 0
+                                and int(ens.max()) < codes.shape[0]):
+            raise ValueError(f"ens must lie in [0, {codes.shape[0]})")
+        return histogram_ref(codes, node_id, g, w, n_nodes, n_bins, ens)
     if g.device.type != "cuda":
         raise ValueError(f"no hist path for device {g.device}")
-    out = launch(_lib(), codes, node_id, g, w, n_nodes, n_bins)
+    out = launch(_lib(), codes, node_id, g, w, n_nodes, n_bins, ens=ens)
     from repro_torch.kernels.build import count_launch
     count_launch(histogram)
     return out
 
 
 @_histogram_op.register_fake
-def _histogram_fake(codes, node_id, g, w, n_nodes, n_bins):
-    S, p, out = node_id.shape[0], codes.shape[1], g.shape[2]
+def _histogram_fake(codes, node_id, g, w, ens, n_nodes, n_bins):
+    S, p, out = node_id.shape[0], codes.shape[2], g.shape[2]
     return (g.new_empty((S, n_nodes, p, n_bins, out)),
             g.new_empty((S, n_nodes, p, n_bins)))
 
@@ -333,21 +356,22 @@ histogram.launches = 0
 
 
 def launch(lib, codes, node_id, g, w, n_nodes: int, n_bins: int,
-           pl: Plan | None = None):
+           pl: Plan | None = None, ens=None):
     """The CUDA path of :func:`histogram` through the built library ``lib``
-    (checked CUDA inputs): lays the rows out by node (:func:`node_layout`,
-    once), allocates the outputs and the kernel's node-ordered copies of
-    its inputs, and launches the kernel on the current stream once per bin
-    window (:func:`bin_windows`) with the window's tile (:func:`plan`'s, or
-    ``pl``). Counts nothing: :func:`histogram` does;
-    ``scripts/probe_torch_hist.py`` launches other builds and tiles of the
-    kernel through it."""
+    (checked CUDA inputs, in either form :func:`histogram` takes): lays the
+    rows out by node (:func:`node_layout`, once), allocates the outputs and
+    the kernel's node-ordered copies of its inputs, and launches the kernel
+    on the current stream once per bin window (:func:`bin_windows`) with
+    the window's tile (:func:`plan`'s, or ``pl``). Counts nothing:
+    :func:`histogram` does; ``scripts/probe_torch_hist.py`` launches other
+    builds and tiles of the kernel through it."""
     from repro_torch.kernels.build import check_launch
-    n, p = codes.shape
     S, out = node_id.shape[0], g.shape[2]
-    if S > _GRID_YZ or n_nodes > _GRID_YZ:
-        raise ValueError(f"S={S}, n_nodes={n_nodes}: each must be <= "
-                         f"{_GRID_YZ}")
+    codes, w, ens = batched(codes, w, ens, S)
+    E, n, p = codes.shape
+    if S > _GRID_YZ or n_nodes > _GRID_YZ or E > _GRID_YZ:
+        raise ValueError(f"S={S}, n_nodes={n_nodes}, E={E}: each must be "
+                         f"<= {_GRID_YZ}")
     dev = g.device
     sum_g = torch.empty((S, n_nodes, p, n_bins, out), dtype=torch.float32,
                         device=dev)
@@ -375,16 +399,18 @@ def launch(lib, codes, node_id, g, w, n_nodes: int, n_bins: int,
                                       dtype=torch.uint8, device=dev)
                 rc = lib.hist_launch_cols(
                     codes.data_ptr(), codes.element_size(), src.data_ptr(),
-                    offsets.data_ptr(), g.data_ptr(), w.data_ptr(),
-                    values.data_ptr(), codes_t.data_ptr(), sum_g.data_ptr(),
-                    count.data_ptr(), S, n, L, p, wpl.code_stride, out,
-                    out_pad, n_nodes, hi - lo, lo, n_bins, int(first),
-                    wpl.warps, wpl.per, wpl.stages, stream)
+                    offsets.data_ptr(), ens.data_ptr(), g.data_ptr(),
+                    w.data_ptr(), values.data_ptr(), codes_t.data_ptr(),
+                    sum_g.data_ptr(), count.data_ptr(), S, E, n, L, p,
+                    wpl.code_stride, out, out_pad, n_nodes, hi - lo, lo,
+                    n_bins, int(first), wpl.warps, wpl.per, wpl.stages,
+                    stream)
             else:
-                narrow = torch.empty((n + 1, wpl.code_stride),
+                # each ensemble's codes narrowed, [E, n + 1, stride]
+                narrow = torch.empty((E, n + 1, wpl.code_stride),
                                      dtype=torch.uint8, device=dev)
                 rc = lib.hist_narrow(codes.data_ptr(), codes.element_size(),
-                                     narrow.data_ptr(), n, p, wpl.feats,
+                                     narrow.data_ptr(), E, n, p, wpl.feats,
                                      wpl.tile, wpl.code_stride, hi - lo, lo,
                                      stream)
                 check_launch("hist", rc)
@@ -394,9 +420,10 @@ def launch(lib, codes, node_id, g, w, n_nodes: int, n_bins: int,
                 gs, ws = values
                 rc = lib.hist_launch_feats(
                     narrow.data_ptr(), wpl.code_stride, src.data_ptr(),
-                    offsets.data_ptr(), g.data_ptr(), w.data_ptr(),
-                    gs.data_ptr(), ws.data_ptr(), sum_g.data_ptr(),
-                    count.data_ptr(), S, n, L, p, n_nodes, hi - lo, lo,
-                    n_bins, int(first), wpl.warps, stream)
+                    offsets.data_ptr(), ens.data_ptr(), g.data_ptr(),
+                    w.data_ptr(), gs.data_ptr(), ws.data_ptr(),
+                    sum_g.data_ptr(), count.data_ptr(), S, E, n, L, p,
+                    n_nodes, hi - lo, lo, n_bins, int(first), wpl.warps,
+                    stream)
             check_launch("hist", rc)
     return sum_g, count

@@ -8,15 +8,22 @@ The single-device route of the JAX package's trainer, ported:
   have weight 0 and repeat the class's first row).
 * Each (timestep, class) ensemble repeats its class block K times, draws
   the bridge (train and validation noise), computes weighted quantile
-  edges and the bin codes, and fits its boosted trees
-  (:func:`repro_torch.forest.boosting.fit_ensemble`). The noised inputs of
-  one ensemble exist only while it trains.
+  edges and the bin codes. The noised inputs of a batch exist only while
+  it trains.
 * Ensembles are grouped into batches of ``ensembles_per_batch``; each
   batch is written to ``checkpoint_dir`` as it finishes, and
   ``resume=True`` restarts from the manifest. The batch files and the
   manifest's fingerprint are the JAX package's, so either package resumes
   the other's checkpoint of the same run. The ensembles of a batch train
-  one after the other.
+  together, as the lanes of one boosting loop
+  (:func:`repro_torch.forest.boosting.fit_ensembles`, the JAX package's
+  ``jax.vmap(fit_one)``): one ``hist`` launch a tree level, one split
+  search, one routing pass and one validation loss for all of them. A
+  batch is cut into consecutive groups of whole ensembles whose deepest
+  level's histograms fit :data:`HIST_GROUP_BYTES`
+  (:func:`ensemble_groups`, a pure function of the shapes), one loop a
+  group. Each ensemble's trees are the same bits whatever its batch or
+  group.
 * ``extend_artifacts`` continues a model by K boosting rounds (warm
   start), bit-identical to a cold fit of R + K rounds on the same data.
 
@@ -57,7 +64,7 @@ import torch
 from repro_torch.config import ForestConfig
 from repro_torch.core import interpolants as itp
 from repro_torch.forest.binning import edges_with_sentinel, pack_codes, transform
-from repro_torch.forest.boosting import fit_ensemble
+from repro_torch.forest.boosting import fit_ensembles, lanes_per_ensemble
 from repro_torch.kernels.dispatch import Device, resolve_device
 from repro_torch.obs import default_registry, default_tracer
 from repro_torch.tabgen.artifacts import (RESULT_FIELDS, ForestArtifacts,
@@ -70,6 +77,28 @@ from repro_torch.train import checkpoint as _ckpt
 NoiseFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 _FIT_STREAM = 3   # after sampling's x1 / solve / impute streams
+
+# The bytes a group's deepest-level histograms (sum_g and count, f32) may
+# take: the split search holds a few arrays of that size at once, so one
+# group stays well inside an 80 GB card. Fixed, so that a fit makes the
+# same launches in every run and on every card.
+HIST_GROUP_BYTES = 8 * 10 ** 9
+
+
+def ensemble_groups(n_ens: int, lanes: int, p: int, n_bins: int, out: int,
+                    depth: int, cap: Optional[int] = None):
+    """Cut a batch of ``n_ens`` ensembles into consecutive groups
+    ``[(start, stop), ...]`` that train as one loop each: as many whole
+    ensembles a group as keep the deepest level's histograms (``lanes``
+    lanes, ``2^(depth-1)`` nodes, p features, n_bins bins, out + 1 f32
+    columns each) within ``cap`` bytes (:data:`HIST_GROUP_BYTES`), and at
+    least one. A pure function of the shapes: it never reads free
+    memory."""
+    cap = HIST_GROUP_BYTES if cap is None else cap
+    nodes = 2 ** max(depth - 1, 0)
+    per = lanes * nodes * p * n_bins * (out + 1) * 4
+    size = max(1, cap // max(per, 1))
+    return [(a, min(a + size, n_ens)) for a in range(0, n_ens, size)]
 
 
 def weighted_edges(x, w, n_bins: int):
@@ -585,8 +614,8 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
         return itp.sample_bridge(x0, fcfg.method, t, fcfg.sigma,
                                  x1=x1.to(device), jitter=jitter)[1:]
 
-    def fit_one(ti, yi):
-        """Train the (t, y) ensemble; everything transient lives here."""
+    def inputs(ti, yi):
+        """The (t, y) ensemble's noised rows, edges and codes."""
         eid = ti * n_y + yi
         t = ts[ti].to(device)
         x0 = Xc_d[yi].repeat_interleave(K, dim=0)          # [mK, p]
@@ -599,18 +628,36 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
         if fcfg.int8_codes:
             codes = pack_codes(codes, fcfg.n_bins)
             codes_v = pack_codes(codes_v, fcfg.n_bins)
+        raw = (xt, xtv) if warm_arrays is not None else (None, None)
+        return (codes, tgt, w, edges_with_sentinel(edges), codes_v, tgtv,
+                *raw)
+
+    lanes = lanes_per_ensemble(fcfg, p)
+
+    def fit_group(chunk):
+        """Train the ensembles of ``chunk`` as one loop; everything
+        transient lives here."""
+        codes, tgt, w, es, codes_v, tgtv, xt, xtv = (
+            None if parts[0] is None else torch.stack(parts)
+            for parts in zip(*(inputs(ti, yi) for ti, yi in chunk)))
         warm = None
         if warm_arrays is not None:
-            warm = tuple(torch.from_numpy(a[ti, yi]).to(device)
-                         for a in warm_arrays)
-        res = fit_ensemble(codes, tgt, w, edges_with_sentinel(edges),
-                           codes_v, tgtv, w, fcfg, warm=warm, x_raw=xt,
-                           val_raw=xtv)
-        return {k: getattr(res, k).cpu().numpy() for k in RESULT_FIELDS}
+            warm = tuple(torch.from_numpy(np.concatenate(
+                [a[ti, yi] for ti, yi in chunk])).to(device)
+                for a in warm_arrays)
+        res = fit_ensembles(codes, tgt, w, es, codes_v, tgtv, w, fcfg,
+                            warm=warm, x_raw=xt, val_raw=xtv)
+        return {k: getattr(res, k).cpu().numpy().reshape(
+            (len(chunk), lanes) + tuple(getattr(res, k).shape[1:]))
+            for k in RESULT_FIELDS}
 
     def run_batch(chunk):
-        outs = [fit_one(ti, yi) for ti, yi in chunk]
-        return {k: np.stack([o[k] for o in outs]) for k in RESULT_FIELDS}
+        groups = ensemble_groups(
+            len(chunk), lanes, p, fcfg.n_bins,
+            p if fcfg.multi_output else 1, fcfg.max_depth)
+        outs = [fit_group(chunk[a:b]) for a, b in groups]
+        return {k: np.concatenate([o[k] for o in outs])
+                for k in RESULT_FIELDS}
 
     grid = [(ti, yi) for ti in range(fcfg.n_t) for yi in range(n_y)]
     bs = ensembles_per_batch or max(1, min(len(grid), 8))

@@ -430,6 +430,165 @@ def test_narrowed_codes_keep_every_histogram_bit(code_type, n_bins):
 
 
 # ---------------------------------------------------------------------------
+# a batch of ensembles in one launch: per-ensemble codes and weights
+# ---------------------------------------------------------------------------
+
+def batch_inputs(E, n, p, out, S, n_nodes, n_bins, seed, edge=None):
+    """codes [E, n, p], node_id [S, n], g [S, n, out], w [E, n] and a lane
+    map ens [S] that is shuffled and narrowed: not sorted, not contiguous,
+    ensemble 1 left out (its lanes stopped early) where E > 2."""
+    rng = np.random.default_rng(seed)
+    codes = np.stack([inputs(n, p, out, n_nodes, n_bins, seed + 10 * e,
+                             edge=edge)[0] for e in range(E)])
+    nid = rng.integers(0, n_nodes, (S, n)).astype(np.int32)
+    g = rng.normal(size=(S, n, out)).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, (E, n)).astype(np.float32)
+    w[:, ::5] = 0.0
+    kept = [e for e in range(E) if E <= 2 or e != 1]
+    ens = rng.permutation(np.resize(kept, S)).astype(np.int32)
+    return codes, nid, g, w, ens
+
+
+def port_batch(codes, nid, g, w, ens, n_nodes, n_bins, code_type="int32"):
+    np_t, _ = CODE_TYPES[code_type]
+    sums, cnt = histogram(torch.from_numpy(codes.astype(np_t)),
+                          torch.from_numpy(nid), torch.from_numpy(g),
+                          torch.from_numpy(w), n_nodes, n_bins,
+                          ens=torch.from_numpy(ens))
+    return sums.numpy(), cnt.numpy()
+
+
+def _jax_lanes(impl, **kw):
+    """JAX's one-lane histogram under ``jax.vmap`` over the lanes, each
+    lane on its ensemble's codes and weights (the reference's vmap of
+    ``fit_one`` over a batch, then over the SO outputs)."""
+    import jax
+    from repro.forest.hist import build_histogram as jax_build_histogram
+
+    def run(codes, nid, g, w, ens, n_nodes, n_bins):
+        if impl == "xla":
+            def one(c, k, gg, ww):
+                return jax_build_histogram(c, k, gg, ww, n_nodes, n_bins,
+                                           impl="xla")
+        else:
+            def one(c, k, gg, ww):
+                return histogram_pallas(c, k, gg, ww, n_nodes, n_bins,
+                                        interpret=True, **kw)
+        sums, cnt = jax.vmap(one)(jnp.asarray(codes[ens]), jnp.asarray(nid),
+                                  jnp.asarray(g), jnp.asarray(w[ens]))
+        return np.asarray(sums), np.asarray(cnt)
+    return run
+
+
+BATCH_SHAPES = [   # (E, n, p, out, S, n_nodes, n_bins)
+    (2, 130, 5, 5, 2, 4, 16),       # MO, one lane an ensemble
+    (3, 97, 4, 1, 12, 8, 16),       # SO, 4 lanes an ensemble, one left out
+    (6, 64, 3, 1, 9, 2, 8),         # SO lanes of 5 ensembles narrowed to 9
+    (3, 256, 7, 2, 5, 4, 32),
+]
+
+
+@pytest.mark.parametrize("E,n,p,out,S,n_nodes,n_bins", BATCH_SHAPES)
+def test_batched_plain_version_equals_vmapped_jax_to_the_bit(
+        E, n, p, out, S, n_nodes, n_bins):
+    """Per-ensemble codes and weights with a shuffled, narrowed lane map:
+    every lane equals JAX's ``build_histogram`` (its "xla" path,
+    ``segment_sum``) under ``jax.vmap``, bit for bit."""
+    arrays = batch_inputs(E, n, p, out, S, n_nodes, n_bins, seed=E + n)
+    sums, cnt = port_batch(*arrays, n_nodes, n_bins)
+    ref_sums, ref_cnt = _jax_lanes("xla")(*arrays, n_nodes, n_bins)
+    assert sums.shape == (S, n_nodes, p, n_bins, out)
+    np.testing.assert_array_equal(sums, ref_sums)
+    np.testing.assert_array_equal(cnt, ref_cnt)
+
+
+@pytest.mark.parametrize("E,n,p,out,S,n_nodes,n_bins", BATCH_SHAPES[:3])
+def test_batched_plain_version_matches_vmapped_pallas_interpret(
+        E, n, p, out, S, n_nodes, n_bins):
+    """The Pallas kernel in interpret mode under the same ``jax.vmap``
+    (a one-hot product: another order of adds), within the 1e-5 of
+    test_plain_version_matches_pallas_interpret."""
+    arrays = batch_inputs(E, n, p, out, S, n_nodes, n_bins, seed=E + n + 1)
+    sums, cnt = port_batch(*arrays, n_nodes, n_bins)
+    pl_sums, pl_cnt = _jax_lanes("pallas", rows_block=n)(*arrays, n_nodes,
+                                                         n_bins)
+    np.testing.assert_allclose(sums, pl_sums, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(cnt, pl_cnt, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
+@pytest.mark.parametrize("edge", [None, "out_of_range"])
+def test_each_lane_equals_its_ensemble_launched_alone(code_type, edge):
+    """A lane of a batch equals the same lane in a launch of its ensemble
+    alone (codes [n, p], w [n]), to the bit, at int8, int16 and int32
+    codes and with codes outside [0, n_bins) (which add to no cell)."""
+    np_t, _ = CODE_TYPES[code_type]
+    info = np.iinfo(np_t)
+    E, n, p, out, S, n_nodes, n_bins = 4, 120, 6, 1, 10, 4, 16
+    codes, nid, g, w, ens = batch_inputs(E, n, p, out, S, n_nodes, n_bins,
+                                         seed=7, edge=edge)
+    codes = np.clip(codes, info.min, info.max)
+    sums, cnt = port_batch(codes, nid, g, w, ens, n_nodes, n_bins,
+                           code_type)
+    assert set(ens) == {0, 2, 3}                     # ensemble 1 dropped out
+    for s in range(S):
+        e = ens[s]
+        alone = port(codes[e], nid[s:s + 1], g[s:s + 1], w[e], n_nodes,
+                     n_bins, code_type)
+        np.testing.assert_array_equal(sums[s], alone[0][0])
+        np.testing.assert_array_equal(cnt[s], alone[1][0])
+        if edge is None:
+            jax_sums, jax_cnt = jax_lane(codes[e], nid[s:s + 1],
+                                         g[s:s + 1], w[e], n_nodes, n_bins)
+            np.testing.assert_array_equal(sums[s], jax_sums)
+            np.testing.assert_array_equal(cnt[s], jax_cnt)
+
+
+def test_batched_fake_tensor_shapes():
+    """The dry run's fake tensors take the batched form too: the outputs'
+    shapes come from the lanes, not from E."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        codes = torch.zeros((3, 50, 7), dtype=torch.int8)
+        nid = torch.zeros((12, 50), dtype=torch.int32)
+        g = torch.zeros((12, 50, 1))
+        w = torch.zeros((3, 50))
+        ens = torch.zeros((12,), dtype=torch.int32)
+        sums, cnt = histogram(codes, nid, g, w, 4, 16, ens=ens)
+        assert tuple(sums.shape) == (12, 4, 7, 16, 1)
+        assert tuple(cnt.shape) == (12, 4, 7, 16)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "lanes", "range", "weights"])
+def test_wrapper_rejects_a_bad_lane_map(bad):
+    codes, nid, g, w, ens = (torch.from_numpy(a) for a in batch_inputs(
+        3, 40, 3, 1, 6, 2, 8, seed=1))
+    if bad == "dtype":
+        ens = ens.long()
+    elif bad == "lanes":
+        ens = ens[:-1]
+    elif bad == "range":
+        ens = ens.clone()
+        ens[2] = 3
+    else:
+        w = w[:2]
+    with pytest.raises((TypeError, ValueError)):
+        histogram(codes, nid, g, w, 2, 8, ens=ens)
+
+
+def test_narrowed_codes_of_a_batch_are_each_ensembles_own():
+    """The SO narrowing of codes [E, n, p] is [E, n + 1, stride]: each
+    ensemble's codes narrowed on their own, its own spare row n."""
+    codes = torch.from_numpy(batch_inputs(3, 50, 9, 1, 3, 2, 16, seed=2,
+                                          edge="out_of_range")[0])
+    pl = plan(9, 1, 16)
+    narrow = narrow_codes(codes, 16, pl)
+    assert narrow.shape == (3, 51, pl.code_stride)
+    for e in range(3):
+        assert torch.equal(narrow[e], narrow_codes(codes[e], 16, pl))
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel (needs a GPU)
 # ---------------------------------------------------------------------------
 
@@ -526,8 +685,61 @@ def test_cuda_narrowing_equals_plain_version(cuda_device, code_type, n_bins,
     ref = narrow_codes(codes, n_bins, pl, lo)
     got = torch.empty_like(ref, device=cuda_device)
     rc = _lib().hist_narrow(codes.to(cuda_device).data_ptr(),
-                            codes.element_size(), got.data_ptr(), 333, 29,
+                            codes.element_size(), got.data_ptr(), 1, 333, 29,
                             pl.feats, pl.tile, pl.code_stride, n_bins, lo,
+                            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
+@pytest.mark.parametrize("E,n,p,out,S,n_nodes,n_bins", BATCH_SHAPES + [
+    (6, 700, 37, 1, 37 * 5, 8, 64), (2, 600, 37, 37, 2, 4, 256)])
+def test_cuda_batched_launch_equals_plain_cpu_version(
+        cuda_device, E, n, p, out, S, n_nodes, n_bins, code_type):
+    """A launch over the lanes of several ensembles, with a shuffled,
+    narrowed lane map, equals the plain version on the CPU to the bit, and
+    each lane equals its ensemble launched alone on the card."""
+    np_t, _ = CODE_TYPES[code_type]
+    info = np.iinfo(np_t)
+    codes, nid, g, w, ens = batch_inputs(E, n, p, out, S, n_nodes, n_bins,
+                                         seed=n, edge="out_of_range")
+    codes = np.clip(codes, info.min, info.max).astype(np_t)
+    host = [torch.from_numpy(a) for a in (codes, nid, g, w, ens)]
+    dev = [a.to(cuda_device) for a in host]
+    got = histogram(*dev[:4], n_nodes, n_bins, ens=dev[4])
+    wide = host[0].to(torch.int32)
+    spare = torch.where((wide >= 0) & (wide < n_bins), wide, n_bins)
+    ref = histogram_ref(spare, *host[1:4], n_nodes, n_bins + 1, host[4])
+    assert torch.equal(got[0].cpu(), ref[0][:, :, :, :n_bins])
+    assert torch.equal(got[1].cpu(), ref[1][:, :, :, :n_bins])
+    for s in range(0, S, max(1, S // 7)):
+        e = int(ens[s])
+        alone = histogram(dev[0][e], dev[1][s:s + 1], dev[2][s:s + 1],
+                          dev[3][e], n_nodes, n_bins)
+        assert torch.equal(alone[0][0], got[0][s])
+        assert torch.equal(alone[1][0], got[1][s])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_type", sorted(CODE_TYPES))
+def test_cuda_batched_narrowing_equals_plain_version(cuda_device, code_type):
+    """The narrowing pass over E = 3 ensembles' codes writes each one's
+    [n + 1, stride] block as the plain version narrows it alone."""
+    from repro_torch.kernels.hist.ops import _lib
+    np_t, _ = CODE_TYPES[code_type]
+    info = np.iinfo(np_t)
+    codes = batch_inputs(3, 333, 29, 1, 3, 2, min(64, info.max), seed=4,
+                         edge="out_of_range")[0]
+    codes = torch.from_numpy(np.clip(codes, info.min, info.max).astype(np_t))
+    pl = plan(29, 1, 64)
+    ref = narrow_codes(codes, 64, pl)
+    got = torch.empty_like(ref, device=cuda_device)
+    rc = _lib().hist_narrow(codes.to(cuda_device).data_ptr(),
+                            codes.element_size(), got.data_ptr(), 3, 333, 29,
+                            pl.feats, pl.tile, pl.code_stride, 64, 0,
                             torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()

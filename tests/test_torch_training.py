@@ -42,7 +42,8 @@ from repro.tabgen.fitting import weighted_edges as j_weighted_edges
 from repro_torch.config import ForestConfig as TForestConfig
 from repro_torch.core import interpolants as titp
 from repro_torch.forest import binning as tbin
-from repro_torch.forest.boosting import fit_boosted, fit_ensemble
+from repro_torch.forest.boosting import (fit_boosted, fit_ensemble,
+                                         fit_ensembles)
 from repro_torch.forest.split import best_splits, ordered_sum, prefix_sum
 from repro_torch.forest.tree import (Tree, grow_tree, predict_tree_codes,
                                      predict_tree_values)
@@ -461,6 +462,77 @@ def test_each_so_lane_equals_that_lane_fitted_alone(so_early_stopped):
                 (s, f)
 
 
+def _batch_of_ensembles(E, p=3):
+    """E ensembles' inputs, each from its own data (and SO validation
+    targets with noise of another scale each, so lanes stop apart)."""
+    parts = []
+    for e in range(E):
+        codes, tgt, w, es, vcodes, tgtv, x, xv = boost_inputs(seed=20 + e,
+                                                              p=p)
+        rng = np.random.default_rng(e)
+        tgtv = tgtv + rng.normal(size=tgtv.shape).astype(np.float32) * \
+            rng.uniform(0.0, 3.0, p).astype(np.float32)
+        parts.append((codes, tgt, w, es, vcodes, tgtv, x, xv))
+    return [t(np.stack(a)) for a in zip(*parts)]
+
+
+@pytest.mark.parametrize("mo", [False, True])
+def test_each_ensemble_of_a_batch_equals_it_fitted_alone(mo):
+    """fit_ensembles over E = 3 ensembles (lanes stopping at different
+    rounds, whole ensembles before others) gives each ensemble's lanes,
+    bit for bit, what fit_ensemble gives it alone; a warm start of the
+    batch continues to the cold batch."""
+    codes, tgt, w, es, vcodes, tgtv, x, xv = _batch_of_ensembles(3)
+    cfg = TForestConfig(**dict(BOOST_CFG, n_trees=14, early_stop_rounds=2,
+                               multi_output=mo))
+    got = fit_ensembles(codes, tgt, w, es, vcodes, tgtv, w, cfg)
+    lanes = 1 if mo else 3
+    assert got.feat.shape[0] == 3 * lanes
+    assert len(set(got.rounds_run.tolist())) > 1, got.rounds_run
+    for e in range(3):
+        alone = fit_ensemble(codes[e], tgt[e], w[e], es[e], vcodes[e],
+                             tgtv[e], w[e], cfg)
+        for f in alone._fields:
+            assert torch.equal(getattr(got, f)[e * lanes:(e + 1) * lanes],
+                               getattr(alone, f)), (e, f)
+    base = fit_ensembles(codes, tgt, w, es, vcodes, tgtv, w,
+                         dataclasses.replace(cfg, n_trees=5))
+    warm = (base.feat, base.thr_val, base.leaf, base.val_curve,
+            base.best_round)
+    ext = fit_ensembles(codes, tgt, w, es, vcodes, tgtv, w, cfg, warm=warm,
+                        x_raw=x, val_raw=xv)
+    for f in got._fields:
+        assert torch.equal(getattr(got, f), getattr(ext, f)), f
+
+
+def test_fit_boosted_takes_any_lane_map():
+    """Lanes of a batch in any order (the map need not be sorted or
+    cover every ensemble) each get what their ensemble's lane gets alone;
+    the validation loss takes each lane's own ensemble's weights."""
+    from repro_torch.forest.boosting import _wmse
+    codes, tgt, w, es, vcodes, tgtv, _, _ = _batch_of_ensembles(4)
+    w = w.clone()
+    w[2, ::3] = 0.0                          # the ensembles' weights differ
+    ens = torch.tensor([3, 0, 3, 2, 0])
+    out = [1, 0, 2, 2, 1]                    # the output each lane fits
+    lanes = torch.stack([tgt[e, :, j] for e, j in zip(ens, out)])[..., None]
+    vlanes = torch.stack([tgtv[e, :, j] for e, j in zip(ens, out)])[
+        ..., None]
+    cfg = TForestConfig(**dict(BOOST_CFG, n_trees=8, early_stop_rounds=2))
+    got = fit_boosted(codes, lanes, w, es, vcodes, vlanes, w, cfg, ens=ens)
+    for s, e in enumerate(ens.tolist()):
+        alone = fit_boosted(codes[e], lanes[s:s + 1], w[e], es[e], vcodes[e],
+                            vlanes[s:s + 1], w[e], cfg)
+        for f in alone._fields:
+            assert torch.equal(getattr(got, f)[s], getattr(alone, f)[0]), \
+                (s, f)
+    pred = torch.randn(lanes.shape, generator=torch.Generator().manual_seed(0))
+    loss = _wmse(pred, lanes, w, ens=ens)
+    for s, e in enumerate(ens.tolist()):
+        assert torch.equal(loss[s:s + 1],
+                           _wmse(pred[s:s + 1], lanes[s:s + 1], w[e]))
+
+
 def test_warm_fit_boosted_continues_to_the_cold_result():
     codes, tgt, w, es, vcodes, tgtv, x, xv = (t(a) for a in
                                               boost_inputs(seed=5))
@@ -652,7 +724,7 @@ def test_resume_retrains_nothing(tmp_path, small_data, monkeypatch):
     d = str(tmp_path / "ckpt")
     first = fit_artifacts(X, y, SMALL, seed=5, checkpoint_dir=d,
                           ensembles_per_batch=3, device="cpu")
-    monkeypatch.setattr(tfitting, "fit_ensemble", _no_training)
+    monkeypatch.setattr(tfitting, "fit_ensembles", _no_training)
     again = fit_artifacts(X, y, SMALL, seed=5, checkpoint_dir=d, resume=True,
                           ensembles_per_batch=3, device="cpu")
     assert_same(first, again)
@@ -669,7 +741,7 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, small_data, monkeypatch):
     d = str(tmp_path / "ckpt")
     jart = j_fit_artifacts(X, y, ForestConfig(**dataclasses.asdict(SMALL)),
                            seed=5, checkpoint_dir=d, ensembles_per_batch=2)
-    monkeypatch.setattr(tfitting, "fit_ensemble", _no_training)
+    monkeypatch.setattr(tfitting, "fit_ensembles", _no_training)
     tart = fit_artifacts(X, y, SMALL, seed=5, checkpoint_dir=d, resume=True,
                          ensembles_per_batch=2, device="cpu")
     for f in FIELDS:
@@ -718,6 +790,124 @@ def test_fit_routes_meshes_and_stores(small_data, tmp_path):
         fit_artifacts(X, y, SMALL, mesh="4x2", device="cpu")
     with pytest.raises(ValueError, match="pipeline="):
         fit_artifacts(store, None, SMALL, pipeline="fast", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# a batch of ensembles as one loop
+# ---------------------------------------------------------------------------
+
+def test_ensemble_groups_at_photons_width():
+    """Hand-reckoned groups under the 8e9-byte cap at CaloForest photons
+    width (p = 368, 64 bins, depth 7: 64 nodes at the deepest level): MO
+    2,224,816,128 B an ensemble, groups of 3; SO (368 lanes) 4,437,573,632
+    B, groups of 1; SO at depth 6 (32 nodes) 2,218,786,816 B, so 2
+    ensembles are one group. Small fits are one group."""
+    groups = tfitting.ensemble_groups
+    assert tfitting.HIST_GROUP_BYTES == 8 * 10 ** 9
+    assert groups(8, 1, 368, 64, 368, 7) == [(0, 3), (3, 6), (6, 8)]
+    assert groups(6, 1, 368, 64, 368, 7) == [(0, 3), (3, 6)]
+    assert groups(2, 1, 368, 64, 368, 7) == [(0, 2)]
+    assert groups(8, 368, 368, 64, 1, 7) == [(e, e + 1) for e in range(8)]
+    assert groups(2, 368, 368, 64, 1, 6) == [(0, 2)]
+    assert groups(8, 2, 2, 16, 1, 3) == [(0, 8)]             # two-moons
+    assert groups(6, 8, 8, 32, 1, 4) == [(0, 6)]             # resource arm
+    assert groups(3, 1, 10, 16, 10, 3, cap=1) == [(0, 1), (1, 2), (2, 3)]
+
+
+BATCH_KINDS = {"so": dict(), "mo": dict(multi_output=True),
+               "so_es": dict(n_trees=10, early_stop_rounds=2),
+               "mo_es": dict(multi_output=True, n_trees=10,
+                             early_stop_rounds=2)}
+
+
+@pytest.fixture(scope="module")
+def batch_fits(moons):
+    """Two-moons fits (5 timesteps x 2 classes = 10 ensembles) at each
+    ``ensembles_per_batch``, and with groups of 2 forced inside each batch
+    (a cap of two ensembles' histograms)."""
+    X, y = moons
+    cache = {}
+
+    def get(kind, bs, cap=None):
+        key = (kind, bs, cap)
+        if key not in cache:
+            cfg = TForestConfig(**dict(MOONS_CFG, **BATCH_KINDS[kind]))
+            saved = tfitting.HIST_GROUP_BYTES
+            if cap:
+                lanes = 1 if cfg.multi_output else 2
+                out = 2 if cfg.multi_output else 1
+                tfitting.HIST_GROUP_BYTES = cap * lanes * 4 * 2 * 16 * (
+                    out + 1) * 4
+            try:
+                cache[key] = fit_artifacts(X, y, cfg, seed=3, device="cpu",
+                                           ensembles_per_batch=bs)
+            finally:
+                tfitting.HIST_GROUP_BYTES = saved
+        return cache[key]
+    return get
+
+
+@pytest.mark.parametrize("bs,cap", [(2, None), (3, None), (0, None),
+                                    (0, 2), (3, 2)])
+@pytest.mark.parametrize("kind", sorted(BATCH_KINDS))
+def test_fit_is_the_same_at_every_batch(batch_fits, kind, bs, cap):
+    """fit_artifacts trains each batch's ensembles together; every field
+    equals, bit for bit, the fit of one ensemble a batch, whatever the
+    batch (2, 3 with a short last batch, the default 8) and its groups."""
+    one = batch_fits(kind, 1)
+    assert_same(batch_fits(kind, bs, cap), one)
+    if kind.endswith("_es"):
+        # lanes stop at different rounds, so the batch narrows
+        assert len(set(one.rounds_run.flatten().tolist())) > 1
+
+
+@pytest.mark.parametrize("kind", sorted(BATCH_KINDS))
+def test_extension_is_the_same_at_every_batch(batch_fits, moons, kind):
+    """A warm-start extension of a batch (each ensemble's base trees
+    replayed on its own raw rows) equals the cold fit at any batch."""
+    X, y = moons
+    cold = batch_fits(kind, 1)
+    cfg = cold.config
+    base = fit_artifacts(X, y, dataclasses.replace(cfg,
+                                                   n_trees=cfg.n_trees - 3),
+                         seed=3, device="cpu", ensembles_per_batch=3)
+    for bs in (1, 0):
+        ext = extend_artifacts(base, X, y, extra_trees=3, seed=3,
+                               device="cpu", ensembles_per_batch=bs)
+        assert_same(ext, cold)
+
+
+def test_a_fit_launches_hist_once_a_level_a_group(moons, monkeypatch):
+    """Counted calls of the histogram: a fit makes, for each group, (its
+    longest lane's rounds) x (depth + 1) of them: one a level and one for
+    the leaf sums, not one per ensemble."""
+    from repro_torch.forest import hist as fhist
+    X, y = moons
+    calls = []
+    real = fhist.histogram
+
+    def counted(*args, **kwargs):
+        calls.append(args[1].shape[0])           # the launch's lanes
+        return real(*args, **kwargs)
+    monkeypatch.setattr(fhist, "histogram", counted)
+    cfg = TForestConfig(**dict(MOONS_CFG, **BATCH_KINDS["so_es"]))
+    lanes, n_ens = 2, cfg.n_t * 2
+    monkeypatch.setattr(tfitting, "HIST_GROUP_BYTES",
+                        3 * lanes * 4 * 2 * 16 * 2 * 4)   # 3 ensembles
+    art = fit_artifacts(X, y, cfg, seed=3, device="cpu",
+                        ensembles_per_batch=4)
+    rounds = art.rounds_run.reshape(n_ens, lanes)
+    expect, groups = 0, []
+    for b0 in range(0, n_ens, 4):
+        for a, b in tfitting.ensemble_groups(min(4, n_ens - b0), lanes, 2,
+                                             16, 1, cfg.max_depth):
+            groups.append((b0 + a, b0 + b))
+            expect += int(rounds[b0 + a:b0 + b].max()) * (cfg.max_depth + 1)
+    assert groups == [(0, 3), (3, 4), (4, 7), (7, 8), (8, 10)]
+    assert len(calls) == expect
+    per_ensemble = int(rounds.max(1).values.sum()) * (cfg.max_depth + 1)
+    assert len(calls) < per_ensemble
+    assert max(calls) == 3 * lanes                  # a group's lanes at once
 
 
 def test_tabular_generator_fit_round_trips_the_schema(tmp_path):
