@@ -10,9 +10,12 @@ Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
   (:func:`render_prometheus`), dumped offline by
   ``repro_torch.launch.metrics``.
 * :mod:`repro_torch.obs.tracing` — ring-buffered :class:`Tracer` spans
-  threaded through the serving hot path, the fit pipeline and
-  ``DatasetStore`` ingest, with optional JSONL export and
-  ``torch.profiler`` annotations (``REPRO_OBS_TORCH_TRACE=1``).
+  threaded through the serving hot path, the fit pipeline, the generate
+  path (``sample.*``: :func:`repro_torch.tabgen.sampling.sample_async`
+  and ``SampleHandle.result``) and ``DatasetStore`` ingest, with optional
+  JSONL export and a mirror of each scoped span into ``torch.profiler``
+  as a ``record_function`` range of the same name
+  (``REPRO_OBS_TORCH_TRACE=1``, or ``Tracer(torch_annotations=True)``).
 
 and two with torch probes of their own:
 
@@ -76,8 +79,10 @@ def default_registry() -> MetricsRegistry:
 
 
 def default_tracer() -> Tracer:
-    """The process-wide tracer used by offline paths (fit, ingest)."""
+    """The process-wide tracer used by offline paths (fit, ingest) and by
+    every generate call (eight ``sample.*`` spans a call). It holds the
+    newest 16,384 spans: 2,048 calls' worth."""
     with _defaults_lock:
         if "tracer" not in _defaults:
-            _defaults["tracer"] = Tracer(capacity=4096)
+            _defaults["tracer"] = Tracer(capacity=16384)
         return _defaults["tracer"]

@@ -24,14 +24,30 @@ can never skew from the span (the scheduler's one-reading contract).
 ``tracer.spans(name=...)`` queries completed spans (oldest first);
 ``tracer.export_jsonl(path)`` dumps them for offline tooling (truncating
 by default; ``append=True`` accumulates across dumps — the
-:class:`SlowLog` below is always append).  A copy of the JAX package's
-``repro.obs.tracing`` without its ``jax.profiler`` annotations.
+:class:`SlowLog` below is always append).
+
+The profiler mirror: ``Tracer(torch_annotations=True)``, or
+``REPRO_OBS_TORCH_TRACE=1`` when ``torch_annotations`` is ``None`` (read
+per span, not at import), also opens each *scoped* span as a
+``torch.profiler.record_function`` range of the same name, so a
+``torch.profiler`` capture (``POST /debug/profile``,
+``scripts/profile_torch_generation.py``) holds the program's spans on the
+device trace's clock and an idle gap can be put down to the span the host
+was in.  Cross-thread ``start()``/``end()`` spans stay host-only.  Its one
+hazard: on a CUDA device a range also shows as a device-side annotation
+over the operations launched inside it, so a reader of a capture that
+counts every device event as work counts the program's annotations too;
+keep events named as spans apart from device operations.  Off, the mirror
+costs one environment lookup a span.  A copy of the JAX package's
+``repro.obs.tracing``, whose ``REPRO_OBS_JAX_TRACE`` mirror into
+``jax.profiler`` this one follows.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
 import json
+import os
 import threading
 import time
 from collections import deque
@@ -114,13 +130,16 @@ class Tracer:
     spans and silently evicts the oldest.  All mutation happens under one
     lock; ``start``/``end`` are a few dict ops, cheap enough for the
     serving hot path (one queue span per request, one device span per
-    batch).
+    batch).  ``torch_annotations`` turns the profiler mirror on or off
+    (module docstring); ``None`` leaves it to ``REPRO_OBS_TORCH_TRACE``.
     """
 
-    def __init__(self, capacity: int = 2048):
+    def __init__(self, capacity: int = 2048,
+                 torch_annotations: Optional[bool] = None):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         self.capacity = capacity
+        self._torch_annotations = torch_annotations
         self._lock = threading.Lock()
         # eviction is manual (not deque(maxlen=...)): the trace index below
         # must drop exactly the spans the ring drops, or an evicted span
@@ -164,6 +183,17 @@ class Tracer:
                         if not bucket:
                             del self._by_trace[tid]
 
+    def _torch_annotation(self, name: str):
+        """A ``torch.profiler.record_function`` range for scoped spans, or
+        a null context.  The env knob is read per call, not at import."""
+        on = self._torch_annotations
+        if on is None:
+            on = os.environ.get("REPRO_OBS_TORCH_TRACE", "") not in ("", "0")
+        if not on:
+            return contextlib.nullcontext()
+        import torch
+        return torch.profiler.record_function(name)
+
     # -- span creation -------------------------------------------------------
 
     def start(self, name: str, *, trace_id: Optional[str] = None,
@@ -193,7 +223,8 @@ class Tracer:
         st = self._stack()
         st.append(sp)
         try:
-            yield sp
+            with self._torch_annotation(name):
+                yield sp
         finally:
             st.pop()
             sp.end()

@@ -22,6 +22,19 @@ that event only. A serving thread that resolves batch k while another
 thread has already enqueued batch k+1 therefore does not wait for batch
 k+1's device work.
 
+Each call records eight spans into :func:`repro_torch.obs.default_tracer`,
+all under one trace id (``sample-<k>``, a per-process count, kept on the
+:class:`SampleHandle` as ``trace_id``), since ``result()`` may run on
+another thread than the issue: ``sample.issue`` (the whole of
+:func:`sample_async`; ``rows``, ``n_y``, ``m``, ``sampler``) over
+``sample.x1``, ``sample.solve`` (``steps``: the solver's ``n_t - 1``; on a
+CUDA device the host enqueuing every step) and ``sample.copy``
+(``bytes``); ``sample.result`` (``rows``) over ``sample.result.wait``,
+``sample.result.unpad`` and ``sample.result.shuffle`` (``bytes``
+allocated). None inside the solver's step loop. With
+``REPRO_OBS_TORCH_TRACE=1`` each is a ``torch.profiler`` range too
+(:mod:`repro_torch.obs.tracing`).
+
 ``mesh`` shards the solve over a ``(data, model)`` ``DeviceMesh`` of ranks
 (:mod:`repro_torch.launch.mesh`), one process per device. It is a
 collective: every rank calls :func:`sample_async` with the same arguments,
@@ -39,6 +52,7 @@ issues no collective.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -48,11 +62,14 @@ import torch.distributed as dist
 
 from repro_torch.core import interpolants as itp
 from repro_torch.forest.packed import PackedForest
+from repro_torch.obs import default_tracer
 from repro_torch.tabgen.artifacts import (ForestArtifacts, class_span,
                                           unscale, unscale_host)
 from repro_torch.tabgen.samplers import default_sampler, get_sampler
 
 NOISE_BLOCK = 1024   # rows per x1 block
+
+_CALLS = itertools.count(1)   # generate calls of this process: trace ids
 
 # noise streams derived from one user seed (the trainer's is 3)
 _X1_STREAM, _SOLVE_STREAM, _IMPUTE_STREAM = 0, 1, 2
@@ -254,14 +271,18 @@ class SampleHandle:
     ``x`` is the samples on the CPU, or a pinned host tensor that a copy
     from the device is filling; ``ready`` is then the CUDA event recorded
     behind that copy, and ``result()`` waits on it and on nothing else.
+    ``trace_id`` is the call's own trace: its ``sample.result*`` spans
+    join its ``sample.issue`` ones under it.
     """
 
-    def __init__(self, x, per_class, classes, rng, ready=None):
+    def __init__(self, x, per_class, classes, rng, ready=None,
+                 trace_id: Optional[str] = None):
         self._x = x
         self._per_class = per_class
         self._classes = classes
         self._rng = rng
         self.ready = ready
+        self.trace_id = trace_id
         # trace context, stamped by the serving scheduler via tag(): which
         # coalesced batch this dispatch is, and which request traces ride it
         self.batch_id: Optional[int] = None
@@ -276,14 +297,23 @@ class SampleHandle:
         return self
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
-        if self.ready is not None:
-            self.ready.synchronize()                # this batch's copy only
-        x_all = self._x.cpu().numpy()               # [n_y, m, p]
-        X = np.concatenate([x_all[yi, :c]
-                            for yi, c in enumerate(self._per_class)])
-        y = np.repeat(self._classes, self._per_class)
-        perm = self._rng.permutation(len(X))
-        return X[perm], y[perm]
+        tracer, tid = default_tracer(), self.trace_id
+        with tracer.span("sample.result", trace_id=tid) as sp:
+            with tracer.span("sample.result.wait", trace_id=tid):
+                if self.ready is not None:
+                    self.ready.synchronize()        # this batch's copy only
+            with tracer.span("sample.result.unpad", trace_id=tid) as up:
+                x_all = self._x.cpu().numpy()       # [n_y, m, p]
+                X = np.concatenate([x_all[yi, :c]
+                                    for yi, c in enumerate(self._per_class)])
+                y = np.repeat(self._classes, self._per_class)
+                up.attrs["bytes"] = X.nbytes + y.nbytes
+            with tracer.span("sample.result.shuffle", trace_id=tid) as sh:
+                perm = self._rng.permutation(len(X))
+                X, y = X[perm], y[perm]
+                sh.attrs["bytes"] = perm.nbytes + X.nbytes + y.nbytes
+            sp.attrs["rows"] = len(X)
+        return X, y
 
 
 def _copy_to_host(x: torch.Tensor):
@@ -309,49 +339,61 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
     ``artifacts`` is the whole model on the rank's device or its
     :meth:`~ForestArtifacts.shard` slice.
     """
-    fcfg = artifacts.config
-    _, spec = _resolve_sampler(fcfg, sampler)
-    mesh = resolve_mesh(mesh)
-    if mesh is None and artifacts.is_slice:
-        artifacts._require_whole("sample without its mesh")
-    if mesh is not None and mesh.device_type != artifacts.device.type:
-        raise ValueError(f"a {mesh.device_type} mesh cannot sample from "
-                         f"artifacts on {artifacts.device}")
-    rng = np.random.default_rng(seed)
-    label_idx = sample_labels(artifacts.counts, n, rng, fcfg.label_sampler)
-    n_y = artifacts.n_y
-    per_class = np.bincount(label_idx, minlength=n_y)
-    m = int(per_class.max())
-    if pad_to is not None:
-        if pad_to < m:
-            raise ValueError(f"pad_to={pad_to} < largest class batch {m}")
-        m = int(pad_to)
-    device = artifacts.device
-    ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff, fcfg.t_schedule,
-                       device=device)
-    generator = None
-    if spec.stochastic:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(stream_seed(seed, _SOLVE_STREAM))
-    if mesh is None:
-        x_all = solve_all_classes(
-            artifacts.feat, artifacts.thr_val, artifacts.leaf,
-            row_noise(seed, n_y, m, artifacts.p, device),
-            artifacts.mins, artifacts.maxs, ts, solver_fn=spec.fn,
-            depth=fcfg.max_depth, n_t=fcfg.n_t,
-            multi_output=fcfg.multi_output, eps=fcfg.eps_diff,
-            generator=generator)
-    else:
-        x_all = solve_sharded(
-            artifacts, mesh, ts, m=m, solver_fn=spec.fn,
-            x1=lambda classes, rows: row_noise(seed, n_y, m, artifacts.p,
-                                               device, classes, rows),
-            generator=generator)
-    ready = None
-    if device.type == "cuda":
-        x_all, ready = _copy_to_host(x_all)
-    return SampleHandle(x_all, per_class, np.asarray(artifacts.classes), rng,
-                        ready)
+    tracer, tid = default_tracer(), f"sample-{next(_CALLS)}"
+    with tracer.span("sample.issue", trace_id=tid, rows=n) as sp:
+        fcfg = artifacts.config
+        name, spec = _resolve_sampler(fcfg, sampler)
+        mesh = resolve_mesh(mesh)
+        if mesh is None and artifacts.is_slice:
+            artifacts._require_whole("sample without its mesh")
+        if mesh is not None and mesh.device_type != artifacts.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot sample from "
+                             f"artifacts on {artifacts.device}")
+        rng = np.random.default_rng(seed)
+        label_idx = sample_labels(artifacts.counts, n, rng,
+                                  fcfg.label_sampler)
+        n_y = artifacts.n_y
+        per_class = np.bincount(label_idx, minlength=n_y)
+        m = int(per_class.max())
+        if pad_to is not None:
+            if pad_to < m:
+                raise ValueError(f"pad_to={pad_to} < largest class batch {m}")
+            m = int(pad_to)
+        sp.attrs.update(n_y=n_y, m=m, sampler=name)
+        device = artifacts.device
+        ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff,
+                           fcfg.t_schedule, device=device)
+        generator = None
+        if spec.stochastic:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(stream_seed(seed, _SOLVE_STREAM))
+
+        def x1(classes=None, rows=None):
+            with tracer.span("sample.x1", trace_id=tid):
+                return row_noise(seed, n_y, m, artifacts.p, device, classes,
+                                 rows)
+
+        # a rank of a mesh draws its block of x1 inside the solve
+        x1_all = x1() if mesh is None else None
+        with tracer.span("sample.solve", trace_id=tid, steps=fcfg.n_t - 1):
+            if mesh is None:
+                x_all = solve_all_classes(
+                    artifacts.feat, artifacts.thr_val, artifacts.leaf,
+                    x1_all, artifacts.mins, artifacts.maxs, ts,
+                    solver_fn=spec.fn, depth=fcfg.max_depth, n_t=fcfg.n_t,
+                    multi_output=fcfg.multi_output, eps=fcfg.eps_diff,
+                    generator=generator)
+            else:
+                x_all = solve_sharded(artifacts, mesh, ts, m=m,
+                                      solver_fn=spec.fn, x1=x1,
+                                      generator=generator)
+        with tracer.span("sample.copy", trace_id=tid, bytes=0) as cp:
+            ready = None
+            if device.type == "cuda":
+                x_all, ready = _copy_to_host(x_all)
+                cp.attrs["bytes"] = x_all.numel() * x_all.element_size()
+        return SampleHandle(x_all, per_class, np.asarray(artifacts.classes),
+                            rng, ready, tid)
 
 
 def sample(artifacts: ForestArtifacts, n: int, *,
