@@ -14,9 +14,10 @@ behaviour before ``sample_async`` enqueued the copy itself: it lands behind
 whatever the scheduler thread has enqueued of the next batch). Per batch it
 records on the host the seconds the scheduler thread spent dispatching it
 (acquire + enqueue of the solve and its copy), the seconds the waiter
-waited on its copy event and the seconds of its unpad + shuffle, and on
-the device, from CUDA events recorded before the enqueue and after it,
-the batch's device span and the device's idle gap before it. A last
+waited on its copy event and the seconds of the rest of its resolve (copy
+out, decode, delivery), and on the device, from CUDA events recorded
+before the enqueue and after it, the batch's device span and the device's
+idle gap before it. A last
 in-flight run under ``torch.profiler`` gives the kernels' device time, by
 name, against the run's wall time. Prints one line per arm and round, and
 a JSON summary as the last line; writes every batch's numbers and the
@@ -193,7 +194,7 @@ def main(argv=None):
         print(f"{i} {arm}: {res['wall_s']!r} s, {res['rows_per_s']!r} "
               f"rows/s, {res['batches']} batches; host: dispatch "
               f"{res['dispatch_s']!r} s, event wait {res['wait_s']!r} s, "
-              f"unpad+shuffle {res['finish_s']!r} s; device: spans "
+              f"finish {res['finish_s']!r} s; device: spans "
               f"{res['device_span_s']!r} s in a window of "
               f"{res['device_window_s']!r} s, idle between batches "
               f"{res['idle_between_s']!r} s", flush=True)

@@ -11,9 +11,9 @@ and at n=120,000:
 
 * the host ms of each of the eight spans a call records
   (``tabgen/sampling.py``: ``sample.issue`` over ``sample.x1``,
-  ``sample.solve``, ``sample.copy``; ``sample.result`` over
-  ``sample.result.wait``, ``.unpad``, ``.shuffle``), the median over warm
-  calls, with nothing synchronised between them;
+  ``sample.solve``, ``sample.compact``, ``sample.copy``; ``sample.result``
+  over ``sample.result.wait``, ``.copy_out``), the median over warm calls,
+  with nothing synchronised between them;
 * one ``torch.profiler`` capture of a few calls with
   ``REPRO_OBS_TORCH_TRACE=1``: the device's busy share, its idle time
   split by the innermost program span the host was in at each instant of
@@ -46,9 +46,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIRROR = "REPRO_OBS_TORCH_TRACE"
-CALL_SPANS = ("sample.issue", "sample.x1", "sample.solve", "sample.copy",
-              "sample.result", "sample.result.wait", "sample.result.unpad",
-              "sample.result.shuffle")
+CALL_SPANS = ("sample.issue", "sample.x1", "sample.solve", "sample.compact",
+              "sample.copy", "sample.result", "sample.result.wait",
+              "sample.result.copy_out")
 
 
 @contextlib.contextmanager

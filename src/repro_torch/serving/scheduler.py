@@ -5,7 +5,7 @@ The port's twin of the JAX package's ``repro.serving.scheduler``. A
 drain-then-serve loop (form a batch, dispatch it, block on the result,
 split rows, repeat) makes every request wait queue-time + full device-time
 of everything ahead of it, and the device idles while the host
-unpads/shuffles/delivers the previous batch.
+copies out and delivers the previous batch.
 
 This scheduler splits those roles across two threads, riding the property
 that :func:`repro_torch.tabgen.sample_async` returns once the solve and
@@ -16,7 +16,7 @@ its copy to pinned host memory are enqueued on the device:
   and *dispatches* the batch — ``ModelHandle.generate_async`` returns as
   soon as the work is enqueued on the device;
 * the **waiter thread** resolves in-flight batches in dispatch order:
-  wait for the batch's own copy event, unpad/decode, slice rows back per
+  wait for the batch's own copy event, copy out/decode, slice rows back per
   request, deliver futures, account stats.
 
 While the waiter waits on batch ``k``, the scheduler is already admitting

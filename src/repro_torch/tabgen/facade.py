@@ -111,11 +111,10 @@ class TabularGenerator:
                        seed: int = 0, pad_to: Optional[int] = None,
                        mesh=None):
         """Non-blocking generate: enqueues the device work and returns a
-        handle whose ``result()`` finishes the call (wait for the device,
-        unpad/shuffle, schema decode). ``mesh`` (``"auto"`` | DeviceMesh |
-        None) shards the solve over a mesh of ranks, every rank making the
-        same call; the rows equal the unsharded call's on the same device
-        type."""
+        handle whose ``result()`` finishes the call (wait for the rows,
+        schema decode). ``mesh`` (``"auto"`` | DeviceMesh | None) shards
+        the solve over a mesh of ranks, every rank making the same call;
+        the rows equal the unsharded call's on the same device type."""
         handle = _sample_async(self._require_artifacts(), n, sampler=sampler,
                                seed=seed, pad_to=pad_to, mesh=mesh)
         if self.schema is None:

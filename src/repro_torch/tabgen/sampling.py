@@ -3,8 +3,10 @@
 All classes are integrated at once: ``x1`` is ``[n_y, m, p]`` and each solver
 step evaluates the ``[n_y, n_sub]`` forests of that step in one
 :func:`~repro_torch.forest.packed.predict_forest` call. Per-class unscaling
-happens on the device too; padding rows (classes get unequal row counts) are
-dropped on the host afterwards.
+happens on the device too, and so do dropping the padding rows (classes get
+unequal row counts) and the shuffle: one row gather (:func:`compact`) whose
+index the host builds from the call's permutation, so only the ``n`` rows
+the caller gets are copied to the host, already in their final order.
 
 ``pad_to`` rounds the per-class row budget up to a fixed bucket, as a
 serving host does. Noise is drawn so that padding changes no kept row: x1
@@ -16,11 +18,12 @@ different numbers, and the parity tests hand both the same x1.
 
 :func:`sample_async` only enqueues device work; :meth:`SampleHandle.result`
 is where the host waits. On a CUDA device :func:`sample_async` also
-enqueues the copy of the samples into pinned host memory, on the stream
-that ran the solve, and records an event behind it: ``result()`` waits for
-that event only. A serving thread that resolves batch k while another
-thread has already enqueued batch k+1 therefore does not wait for batch
-k+1's device work.
+enqueues the copy of the gathered rows into pinned host memory, on the
+stream that ran the solve, and records an event behind it: ``result()``
+waits for that event only, then copies the rows into an array of their
+own. A serving thread that resolves batch k while another thread has
+already enqueued batch k+1 therefore does not wait for batch k+1's device
+work.
 
 Each call records eight spans into :func:`repro_torch.obs.default_tracer`,
 all under one trace id (``sample-<k>``, a per-process count, kept on the
@@ -28,10 +31,11 @@ all under one trace id (``sample-<k>``, a per-process count, kept on the
 another thread than the issue: ``sample.issue`` (the whole of
 :func:`sample_async`; ``rows``, ``n_y``, ``m``, ``sampler``) over
 ``sample.x1``, ``sample.solve`` (``steps``: the solver's ``n_t - 1``; on a
-CUDA device the host enqueuing every step) and ``sample.copy``
-(``bytes``); ``sample.result`` (``rows``) over ``sample.result.wait``,
-``sample.result.unpad`` and ``sample.result.shuffle`` (``bytes``
-allocated). None inside the solver's step loop. With
+CUDA device the host enqueuing every step), ``sample.compact`` (``rows``;
+``padding_rows``, the rows dropped on the device) and ``sample.copy``
+(``bytes`` copied to the host); ``sample.result`` (``rows``) over
+``sample.result.wait`` and ``sample.result.copy_out`` (``bytes`` of the
+rows and labels handed over). None inside the solver's step loop. With
 ``REPRO_OBS_TORCH_TRACE=1`` each is a ``torch.profiler`` range too
 (:mod:`repro_torch.obs.tracing`).
 
@@ -45,9 +49,9 @@ x1 comes from the same ``(seed, class, block)`` streams, drawing only the
 blocks its rows touch, and a stochastic sampler's step noise is its slice
 of the unsharded call's whole draw, so the rows equal the unsharded
 call's on the same device type, bit for bit. ``sample_async`` enqueues
-the gathers (over ``data``, then over ``model`` where classes are split)
-and the copy to pinned memory behind them; :meth:`SampleHandle.result`
-issues no collective.
+the gathers (over ``data``, then over ``model`` where classes are split),
+the row gather of :func:`compact` and the copy to pinned memory behind
+them; :meth:`SampleHandle.result` issues no collective.
 """
 from __future__ import annotations
 
@@ -264,23 +268,21 @@ def _resolve_sampler(fcfg, sampler: Optional[str]):
 
 class SampleHandle:
     """An in-flight :func:`sample`: device work enqueued, host finish
-    deferred. ``result()`` waits for the ``[n_y, m, p]`` samples to reach
-    the host, then unpads and shuffles them exactly as the synchronous path
-    does.
+    deferred. ``result()`` waits for the rows to reach the host and hands
+    them over with their labels.
 
-    ``x`` is the samples on the CPU, or a pinned host tensor that a copy
-    from the device is filling; ``ready`` is then the CUDA event recorded
-    behind that copy, and ``result()`` waits on it and on nothing else.
-    ``trace_id`` is the call's own trace: its ``sample.result*`` spans
-    join its ``sample.issue`` ones under it.
+    ``x`` is the ``[n, p]`` rows in their final order: on the CPU, or a
+    pinned host tensor that a copy from the device is filling; ``ready`` is
+    then the CUDA event recorded behind that copy, and ``result()`` waits on
+    it and on nothing else. ``y`` is the labels, built on the host at issue.
+    ``trace_id`` is the call's own trace: its ``sample.result*`` spans join
+    its ``sample.issue`` ones under it.
     """
 
-    def __init__(self, x, per_class, classes, rng, ready=None,
+    def __init__(self, x: torch.Tensor, y: np.ndarray, ready=None,
                  trace_id: Optional[str] = None):
         self._x = x
-        self._per_class = per_class
-        self._classes = classes
-        self._rng = rng
+        self._y = y
         self.ready = ready
         self.trace_id = trace_id
         # trace context, stamped by the serving scheduler via tag(): which
@@ -297,23 +299,56 @@ class SampleHandle:
         return self
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(X [n, p], y [n])``, once. ``X`` owns its memory: the caller
+        may keep it without holding the pinned buffer, which the caching
+        host allocator then hands to a later call."""
         tracer, tid = default_tracer(), self.trace_id
         with tracer.span("sample.result", trace_id=tid) as sp:
             with tracer.span("sample.result.wait", trace_id=tid):
                 if self.ready is not None:
                     self.ready.synchronize()        # this batch's copy only
-            with tracer.span("sample.result.unpad", trace_id=tid) as up:
-                x_all = self._x.cpu().numpy()       # [n_y, m, p]
-                X = np.concatenate([x_all[yi, :c]
-                                    for yi, c in enumerate(self._per_class)])
-                y = np.repeat(self._classes, self._per_class)
-                up.attrs["bytes"] = X.nbytes + y.nbytes
-            with tracer.span("sample.result.shuffle", trace_id=tid) as sh:
-                perm = self._rng.permutation(len(X))
-                X, y = X[perm], y[perm]
-                sh.attrs["bytes"] = perm.nbytes + X.nbytes + y.nbytes
+            with tracer.span("sample.result.copy_out", trace_id=tid) as co:
+                X = _copy_out(self._x)
+                co.attrs["bytes"] = X.nbytes + self._y.nbytes
+            self._x = None
             sp.attrs["rows"] = len(X)
-        return X, y
+        return X, self._y
+
+
+# Below this many bytes one thread copies the rows out. After a short copy
+# the intra-op pool's idle threads delay the host's next kernel launches:
+# on an H100's 8-core host, 4,000 rows of 368 columns (5.9 MB) took 0.28 ms
+# on the pool against 0.52 ms on one thread, but the p95 of 400 launches
+# after it read 20 ms against 3.4 ms. A large fresh array is faulted in
+# faster by the pool: 120,000 rows (177 MB) took 58 ms against 80 ms.
+POOL_COPY_BYTES = 64 * 2 ** 20
+
+
+def _copy_out(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a NumPy array that owns its memory."""
+    if x.numel() * x.element_size() < POOL_COPY_BYTES:
+        return x.cpu().numpy().copy()
+    X = np.empty(tuple(x.shape), dtype=np.float32)
+    torch.from_numpy(X).copy_(x)
+    return X
+
+
+def compact(x_all: torch.Tensor, per_class: np.ndarray, classes: np.ndarray,
+            perm: np.ndarray) -> Tuple[torch.Tensor, np.ndarray]:
+    """``([n, p] rows, [n] labels)``: the unpadded rows of ``x_all``
+    ``[n_y, m, p]`` (the first ``per_class[c]`` of class ``c``), in class
+    order, then shuffled by ``perm``, as one row gather on ``x_all``'s
+    device. The index is built on the host and, on a CUDA device, uploaded
+    from pinned memory so that the host does not wait for the stream."""
+    n_y, m, p = x_all.shape
+    # row j of the class-ordered rows is padded row j + start[its class]
+    start = np.arange(n_y) * m - (np.cumsum(per_class) - per_class)
+    src = (np.repeat(start, per_class) + np.arange(len(perm)))[perm]
+    src = torch.from_numpy(src)
+    if x_all.device.type == "cuda":
+        src = src.pin_memory().to(x_all.device, non_blocking=True)
+    return (x_all.reshape(n_y * m, p).index_select(0, src),
+            np.repeat(classes, per_class)[perm])
 
 
 def _copy_to_host(x: torch.Tensor):
@@ -354,6 +389,7 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
                                   fcfg.label_sampler)
         n_y = artifacts.n_y
         per_class = np.bincount(label_idx, minlength=n_y)
+        perm = rng.permutation(n)
         m = int(per_class.max())
         if pad_to is not None:
             if pad_to < m:
@@ -387,13 +423,16 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
                 x_all = solve_sharded(artifacts, mesh, ts, m=m,
                                       solver_fn=spec.fn, x1=x1,
                                       generator=generator)
+        with tracer.span("sample.compact", trace_id=tid, rows=n,
+                         padding_rows=n_y * m - n):
+            x, y = compact(x_all, per_class, np.asarray(artifacts.classes),
+                           perm)
         with tracer.span("sample.copy", trace_id=tid, bytes=0) as cp:
             ready = None
             if device.type == "cuda":
-                x_all, ready = _copy_to_host(x_all)
-                cp.attrs["bytes"] = x_all.numel() * x_all.element_size()
-        return SampleHandle(x_all, per_class, np.asarray(artifacts.classes),
-                            rng, ready, tid)
+                x, ready = _copy_to_host(x)
+                cp.attrs["bytes"] = x.numel() * x.element_size()
+        return SampleHandle(x, y, ready, tid)
 
 
 def sample(artifacts: ForestArtifacts, n: int, *,

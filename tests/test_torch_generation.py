@@ -235,16 +235,50 @@ def test_sample_labels_match_jax(mode):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_sample_handle_unpads_and_shuffles_like_jax():
-    x_all = np.random.default_rng(0).normal(size=(3, 40, 4)).astype(np.float32)
-    per_class = np.array([40, 7, 0])
+def host_unpad_and_shuffle(x_all, per_class, classes, rng):
+    """The oracle: the unpad and shuffle as the host once did them after
+    the copy, on the ``[n_y, m, p]`` samples."""
+    X = np.concatenate([x_all[yi, :c] for yi, c in enumerate(per_class)])
+    y = np.repeat(classes, per_class)
+    perm = rng.permutation(len(X))
+    return X[perm], y[perm]
+
+
+@pytest.mark.parametrize("per_class,m", [
+    ([40, 7, 0], 64),            # pad_to a bucket above the largest class
+    ([9, 0, 23], 23),            # a class with zero rows, between two
+    ([0, 1, 0], 1),              # n = 1
+], ids=["bucket_above_largest", "class_with_zero_rows", "n_1"])
+def test_sample_handle_unpads_and_shuffles_like_jax(per_class, m):
+    x_all = np.random.default_rng(0).normal(size=(3, m, 4)).astype(np.float32)
+    per_class = np.array(per_class)
     classes = np.array([10, 20, 30])
     X_ref, y_ref = JS.SampleHandle(jnp.asarray(x_all), per_class, classes,
                                    np.random.default_rng(9)).result()
-    X, y = TS.SampleHandle(torch.from_numpy(x_all), per_class, classes,
-                           np.random.default_rng(9)).result()
-    np.testing.assert_array_equal(X, X_ref)
-    np.testing.assert_array_equal(y, y_ref)
+    X_old, y_old = host_unpad_and_shuffle(x_all, per_class, classes,
+                                          np.random.default_rng(9))
+    perm = np.random.default_rng(9).permutation(int(per_class.sum()))
+    x, y = TS.compact(torch.from_numpy(x_all), per_class, classes, perm)
+    X, y = TS.SampleHandle(x, y).result()
+    for want_X, want_y in ((X_ref, y_ref), (X_old, y_old)):
+        np.testing.assert_array_equal(X, want_X)
+        np.testing.assert_array_equal(y, want_y)
+    assert X.dtype == X_old.dtype and y.dtype == y_old.dtype
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["one_thread", "pool"])
+def test_result_rows_own_their_memory(flow_so, monkeypatch, pool):
+    """``result()``'s rows are an array of their own: writeable, C order,
+    untouched by a later call; by one thread or the intra-op pool."""
+    if pool:
+        monkeypatch.setattr(TS, "POOL_COPY_BYTES", 0)
+    port = to_port(flow_so)
+    X1, _ = sample_async(port, 50, seed=3).result()
+    assert X1.flags.owndata and X1.flags.writeable and X1.flags.c_contiguous
+    kept = X1.copy()
+    X2, _ = sample_async(port, 50, seed=4).result()
+    np.testing.assert_array_equal(X1, kept)
+    assert not np.array_equal(X1, X2)
 
 
 def test_registry_mirrors_jax():

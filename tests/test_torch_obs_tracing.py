@@ -28,10 +28,9 @@ from repro_torch.tabgen import (TabularGenerator, artifacts_from_numpy,
 
 N_T = 4
 PARENT = {"sample.x1": "sample.issue", "sample.solve": "sample.issue",
-          "sample.copy": "sample.issue", "sample.issue": None,
-          "sample.result.wait": "sample.result",
-          "sample.result.unpad": "sample.result",
-          "sample.result.shuffle": "sample.result", "sample.result": None}
+          "sample.compact": "sample.issue", "sample.copy": "sample.issue",
+          "sample.issue": None, "sample.result.wait": "sample.result",
+          "sample.result.copy_out": "sample.result", "sample.result": None}
 SCOPED = ("outer", "inner", "leaf")
 
 
@@ -89,12 +88,14 @@ def test_a_call_records_its_eight_spans(gen, how):
     assert issue.attrs["rows"] == 11 and issue.attrs["n_y"] == 3
     assert issue.attrs["sampler"] == "euler"
     labels = sample_labels(np.array([5, 7, 4]), 11, None)
-    assert issue.attrs["m"] == (8 if how != "generate" else
-                                np.bincount(labels).max())
+    m = 8 if how != "generate" else np.bincount(labels).max()
+    assert issue.attrs["m"] == m
+    compact = by_name["sample.compact"]
+    assert compact.attrs["rows"] == len(X)
+    assert compact.attrs["padding_rows"] == 3 * m - 11
     assert by_name["sample.copy"].attrs["bytes"] == 0   # no copy on the CPU
     assert res.attrs["rows"] == len(X) == 11
-    assert by_name["sample.result.unpad"].attrs["bytes"] >= X.nbytes
-    assert by_name["sample.result.shuffle"].attrs["bytes"] >= X.nbytes
+    assert by_name["sample.result.copy_out"].attrs["bytes"] >= X.nbytes
     assert res.t_start >= issue.t_end
     want_thread = "resolver" if how == "result_on_another_thread" else \
         issue.thread
