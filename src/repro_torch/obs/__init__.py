@@ -12,7 +12,9 @@ Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
 * :mod:`repro_torch.obs.tracing` — ring-buffered :class:`Tracer` spans
   threaded through the serving hot path, the fit pipeline, the generate
   path (``sample.*``: :func:`repro_torch.tabgen.sampling.sample_async`
-  and ``SampleHandle.result``) and ``DatasetStore`` ingest, with optional
+  and ``SampleHandle.result``; ``sample.solve`` carries ``steps``, the
+  solver steps, ``lanes``, the sub-forests of an ensemble, and ``trees``,
+  the trees of a sub-forest) and ``DatasetStore`` ingest, with optional
   JSONL export and a mirror of each scoped span into ``torch.profiler``
   as a ``record_function`` range of the same name
   (``REPRO_OBS_TORCH_TRACE=1``, or ``Tracer(torch_annotations=True)``).

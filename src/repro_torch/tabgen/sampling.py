@@ -30,12 +30,15 @@ all under one trace id (``sample-<k>``, a per-process count, kept on the
 :class:`SampleHandle` as ``trace_id``), since ``result()`` may run on
 another thread than the issue: ``sample.issue`` (the whole of
 :func:`sample_async`; ``rows``, ``n_y``, ``m``, ``sampler``) over
-``sample.x1``, ``sample.solve`` (``steps``: the solver's ``n_t - 1``; on a
-CUDA device the host enqueuing every step), ``sample.compact`` (``rows``;
-``padding_rows``, the rows dropped on the device) and ``sample.copy``
-(``bytes`` copied to the host); ``sample.result`` (``rows``) over
-``sample.result.wait`` and ``sample.result.copy_out`` (``bytes`` of the
-rows and labels handed over). None inside the solver's step loop. With
+``sample.x1``, ``sample.solve`` (``steps``: the solver's ``n_t - 1``;
+``lanes``: the sub-forests of a (timestep, class) ensemble, ``n_sub``, 1
+for multi-output trees and ``p`` for single-output ones; ``trees``: T, the
+trees of a sub-forest; on a CUDA device the host enqueuing every step),
+``sample.compact`` (``rows``; ``padding_rows``, the rows dropped on the
+device) and ``sample.copy`` (``bytes`` copied to the host);
+``sample.result`` (``rows``) over ``sample.result.wait`` and
+``sample.result.copy_out`` (``bytes`` of the rows and labels handed
+over). None inside the solver's step loop. With
 ``REPRO_OBS_TORCH_TRACE=1`` each is a ``torch.profiler`` range too
 (:mod:`repro_torch.obs.tracing`).
 
@@ -411,7 +414,9 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
 
         # a rank of a mesh draws its block of x1 inside the solve
         x1_all = x1() if mesh is None else None
-        with tracer.span("sample.solve", trace_id=tid, steps=fcfg.n_t - 1):
+        with tracer.span("sample.solve", trace_id=tid, steps=fcfg.n_t - 1,
+                         lanes=artifacts.feat.shape[2],
+                         trees=artifacts.feat.shape[3]):
             if mesh is None:
                 x_all = solve_all_classes(
                     artifacts.feat, artifacts.thr_val, artifacts.leaf,

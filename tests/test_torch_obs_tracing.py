@@ -34,24 +34,35 @@ PARENT = {"sample.x1": "sample.issue", "sample.solve": "sample.issue",
 SCOPED = ("outer", "inner", "leaf")
 
 
-@pytest.fixture(scope="module")
-def gen():
+def make_gen(multi_output=False):
+    """A tiny model of 3 classes, p = 4: single-output trees (4 lanes of
+    T = 2 scalar-leaf trees a class) or multi-output ones (1 lane of T = 2
+    trees with leaves of 4 outputs)."""
     rng = np.random.default_rng(0)
     n_y, T, p = 3, 2, 4
+    lanes, out = (1, p) if multi_output else (p, 1)
     arrays = {
-        "feat": rng.integers(0, p, (N_T, n_y, p, T, 3)).astype(np.int32),
-        "thr_val": rng.normal(size=(N_T, n_y, p, T, 3)).astype(np.float32),
-        "leaf": rng.normal(size=(N_T, n_y, p, T, 4, 1)).astype(np.float32),
-        "best_round": np.zeros((N_T, n_y, p), np.int32),
-        "rounds_run": np.full((N_T, n_y, p), T, np.int32),
-        "val_curve": np.zeros((N_T, n_y, p, T), np.float32),
+        "feat": rng.integers(0, p, (N_T, n_y, lanes, T, 3)).astype(np.int32),
+        "thr_val": rng.normal(size=(N_T, n_y, lanes, T, 3)).astype(
+            np.float32),
+        "leaf": rng.normal(size=(N_T, n_y, lanes, T, 4, out)).astype(
+            np.float32),
+        "best_round": np.zeros((N_T, n_y, lanes), np.int32),
+        "rounds_run": np.full((N_T, n_y, lanes), T, np.int32),
+        "val_curve": np.zeros((N_T, n_y, lanes, T), np.float32),
         "mins": np.zeros((n_y, p), np.float32),
         "maxs": np.ones((n_y, p), np.float32),
         "classes": np.array([0, 1, 2]), "counts": np.array([5, 7, 4])}
-    cfg = dataclasses.asdict(ForestConfig(n_t=N_T, n_trees=T, max_depth=2))
+    cfg = dataclasses.asdict(ForestConfig(n_t=N_T, n_trees=T, max_depth=2,
+                                          multi_output=multi_output))
     g = TabularGenerator(ForestConfig(**cfg))
     g.artifacts = artifacts_from_numpy(arrays, cfg, "cpu")
     return g
+
+
+@pytest.fixture(scope="module")
+def gen():
+    return make_gen()
 
 
 def call(gen, how, n=11):
@@ -101,6 +112,19 @@ def test_a_call_records_its_eight_spans(gen, how):
         issue.thread
     assert {by_name[n].thread for n in PARENT if "result" in n} == \
         {want_thread}
+
+
+@pytest.mark.parametrize("multi_output, lanes", [(False, 4), (True, 1)])
+def test_the_solve_span_counts_lanes_and_trees(multi_output, lanes):
+    """``sample.solve`` carries the sub-forests of an ensemble (``lanes``:
+    p for single-output trees, 1 for multi-output ones) and the trees of
+    each (``trees``), beside ``steps``."""
+    g = make_gen(multi_output)
+    X, tid = call(g, "generate_async")
+    solve, = [s for s in default_tracer().trace(tid)
+              if s.name == "sample.solve"]
+    assert solve.attrs == {"steps": N_T - 1, "lanes": lanes, "trees": 2}
+    assert X.shape == (11, 4)
 
 
 def test_a_mesh_call_draws_x1_inside_its_solve(gen, tmp_path):
