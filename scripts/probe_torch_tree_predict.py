@@ -36,6 +36,17 @@ barrier a tree),
 ``route_x_global`` (the routing kernel gathering x through L1),
 ``route_forest_l1`` (its trees read through L1) and ``route_no_store``
 (without its index stores, so its walks are dropped: its staging alone).
+
+The SO redesign's set (a thread walks one row of one sub-forest, 4 trees
+at once, adding in tree order; rings of tree slices, each lane of a
+copying warp feeding one ring; the MO kernels as in the two-kernel
+design): ``phases`` (``clock64()`` cycles per walking warp waiting for its
+ring, walking, adding and staging x), ``w24`` (up to 23 walking warps,
+not 15), ``feed_only`` (leaf indices fixed: the rings and the adds without
+the walks) and ``walk_only`` (each ring filled once, its first slices
+walked again and again: the walks without the feed). Its build and its
+``w24`` variant are also timed at the SO shapes under other plans (rows,
+rings, trees a slice: ``PLANS``), each checked first.
 ``--out`` also gets the kernel build's SASS (``cuobjdump -sass``).
 
 Variants that compute the function are held to the plain version
@@ -70,7 +81,9 @@ SHAPES = [("MO full width", (15, 1, 20, 7, 368, 368, 8000)),
           ("SO full width", (15, 368, 20, 7, 368, 1, 8000)),
           ("MO n=1024", (15, 1, 20, 7, 368, 368, 1024)),
           ("MO n=4096", (15, 1, 20, 7, 368, 368, 4096)),
-          ("pions width", (15, 1, 20, 7, 533, 533, 8000))]
+          ("pions width", (15, 1, 20, 7, 533, 533, 8000)),
+          ("SO n=1024", (15, 368, 20, 7, 368, 1, 1024)),
+          ("SO pions width", (15, 533, 20, 7, 533, 1, 8000))]
 REPS = 10
 PHASE_SUMS = "g_probe_phase"
 PHASE_READER = f"""
@@ -174,12 +187,28 @@ ONE_KERNEL["launch"] = one_kernel_launch
 # ---------------------------------------------------------------------------
 
 def two_kernel_launch(lib):
-    """The two-kernel C signature, through the wrapper's launch function."""
-    from repro_torch.kernels.tree_predict import ops
-    ops.declare(lib)
+    """The two-kernel C signature (no SO plan), as its wrapper launched it."""
+    import torch
+    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.tree_predict.ops import tiling
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tree_predict_launch.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
+    lib.tree_predict_launch.restype = i32
 
     def run(x, feat, thr, leaf, depth):
-        return ops.launch(lib, x, feat, thr, leaf, depth)
+        B, n, p = x.shape
+        S, T = feat.shape[1], feat.shape[2]
+        out = leaf.shape[-1]
+        y = torch.empty((B, S, n, out), device=x.device)
+        tc, npad = tiling(B, S, T, n)
+        scratch = torch.empty((B * S * tc * npad if out > 1 else 0,),
+                              dtype=torch.int16, device=x.device)
+        rc = lib.tree_predict_launch(
+            x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaf.data_ptr(),
+            y.data_ptr(), scratch.data_ptr(), B, S, n, p, T, depth, out, tc,
+            npad, torch.cuda.current_stream().cuda_stream)
+        check_launch("tree_predict", rc)
+        return y
     return run
 
 
@@ -234,7 +263,70 @@ TWO_KERNELS = {
     ],
 }
 
-DESIGNS = [ONE_KERNEL, TWO_KERNELS]
+
+# ---------------------------------------------------------------------------
+# the SO redesign: a thread a row of a sub-forest, rings fed by a copying warp
+# ---------------------------------------------------------------------------
+
+def row_owned_launch(lib, plan=None):
+    """The wrapper's C signature; ``plan`` (rows, rings, trees) in place of
+    ``ops.so_plan``'s for SO shapes."""
+    from repro_torch.kernels.tree_predict import ops
+    ops.declare(lib)
+
+    def run(x, feat, thr, leaf, depth):
+        (B, n, p), (S, T) = x.shape, feat.shape[1:3]
+        so = None
+        if leaf.shape[-1] == 1:
+            so = plan or ops.so_plan(B, S, T, depth, p, n)
+        return ops.launch(lib, x, feat, thr, leaf, depth, so)
+    return run
+
+
+# plans timed beside so_plan's at the SO shapes, for each build: (walking
+# warps at most, [(rows, rings, trees a slice)])
+_MAIN = [(96, 5, 4), (64, 7, 4), (128, 3, 4), (64, 5, 8)]
+PLANS = {"": (15, _MAIN), ".w24": (23, [(96, 7, 4), (64, 11, 4)]),
+         ".feed_only": (15, _MAIN[:2]), ".walk_only": (15, _MAIN[:2])}
+_W24_EDIT = ("constexpr int kSoWarps = 16;", "constexpr int kSoWarps = 24;")
+# each ring filled once: the walks of its first slices again and again
+_WALK_ONLY = [
+    ("    while (__any_sync(0xffffffffu, k < K && s < N)) {",
+     "    while (__any_sync(0xffffffffu, k < K && s < N && use == 0)) {"),
+    ("      const bool go = k < K && s < N &&",
+     "      const bool go = use == 0 && k < K && s < N &&"),
+    ("      mbar_wait(full0 + 8 * slot, (j / kSoStages) & 1);\n",
+     "      if (j < kSoStages) mbar_wait(full0 + 8 * slot, 0);\n")]
+ROW_OWNED = {
+    "name": "two kernels for MO; SO: a thread a row of a sub-forest, rings of "
+            "tree slices fed by a copying warp",
+    "launch": row_owned_launch,
+    # slots 8-11: so_kernel's walking warps
+    "phases": [(8, ["so: ring wait", "so: walking", "so: adding",
+                    "so: staging x"])],
+    "variants": [
+        ("phases", True, [
+            ("namespace {\n", PHASE_DECL + "namespace {\n"),
+            ("  // so: stage\n", PHASE_START + "  // so: stage\n"),
+            ("  // so: start\n", "  PHASE(3)\n  // so: start\n"),
+            ("      // so: staged\n", "      PHASE(0)\n      // so: staged\n"),
+            ("        // so: walked\n",
+             "        PHASE(1)\n        // so: walked\n"),
+            ("        // so: added\n",
+             "        PHASE(2)\n        // so: added\n"),
+            ("  // so: done\n", phase_flush(8, 4) + "  // so: done\n")]),
+        ("w24", True, [_W24_EDIT]),
+        # the walks left out: every row lands on leaf r % L of each tree
+        ("feed_only", False, [
+            ("        so_walk<true>(hb, f_u + u0 * H, t_u + u0 * H, m, H, "
+             "depth, x_r, R);\n",
+             "        for (int c = 0; c < kSoChains; ++c) hb[c] = 4 * (H + 1 + "
+             "((r + c) & (L - 1)));\n")]),
+        ("walk_only", False, _WALK_ONLY),
+    ],
+}
+
+DESIGNS = [ONE_KERNEL, ROW_OWNED, TWO_KERNELS]
 
 
 def log(msg: str) -> None:
@@ -307,6 +399,10 @@ def sources(work: str, against: str, parent_variants: bool):
                 f.write(edited)
             with open(os.path.join(d, "design"), "w") as f:
                 f.write(design["name"])
+            suffix = name[len(base):]
+            if design is ROW_OWNED and suffix in PLANS:
+                with open(os.path.join(d, "plans"), "w") as f:
+                    f.write(suffix)
             out[name] = (path, design, exact)
     return out
 
@@ -341,16 +437,39 @@ def build_all(srcs: dict, out_dir: str) -> dict:
     return libs
 
 
-def predict_fn(lib_path: str):
+def predict_fn(lib_path: str, plan=None):
     """The build at ``lib_path`` as ``forest_predict(x, feat, thr, leaf,
-    depth)``, through its design's C signature."""
+    depth)``, through its design's C signature (``plan``: the SO plan in
+    place of the wrapper's, for the SO redesign)."""
     with open(os.path.join(os.path.dirname(lib_path), "design")) as f:
         name = f.read()
     design = next(d for d in DESIGNS if d["name"] == name)
     lib = ctypes.CDLL(lib_path)
     fn = getattr(lib, "tree_predict_error_string")
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_char_p
-    return design["launch"](lib)
+    return design["launch"](lib, plan) if plan else design["launch"](lib)
+
+
+def build_plans(lib_path: str):
+    """The build's ``PLANS`` (none for a build without them), each with
+    ``fits(p, depth)``: whether it fits a block at that shape."""
+    from repro_torch.kernels.tree_predict import ops
+    path = os.path.join(os.path.dirname(lib_path), "plans")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        warps, plans = PLANS[f.read()]
+
+    def fitting(plan):
+        rows, rings, _ = plan
+        return lambda p, depth: (
+            ops.so_smem_bytes(p, depth, *plan) <= ops.SMEM_PER_BLOCK
+            and rings * rows // 32 <= warps)
+    return [(plan, fitting(plan)) for plan in plans]
+
+
+def plan_name(build: str, plan) -> str:
+    return f"{build}@{'x'.join(map(str, plan))}"
 
 
 def inputs(shape):
@@ -371,34 +490,46 @@ def check(lib_path: str) -> int:
     # the two-kernel design also takes chip_smoke's edge cases (depth
     # 9–16, 400 and 512 trees), which the one-kernel design refuses or
     # gets wrong by design
-    cases = (cs.tree_predict_cases() if design == TWO_KERNELS["name"] else
+    cases = (cs.tree_predict_cases() if design != ONE_KERNEL["name"] else
              SHAPES + [(f"{kind} n={n}", (B, S, 20, 7, 368, out, n))
                        for n in (1, 97, 130)
                        for kind, B, S, out in (("MO", 15, 1, 368),
                                                ("SO", 2, 368, 1))])
+    plans = build_plans(lib_path)
+    fns = [(None, fn)] + [(plan, predict_fn(lib_path, plan))
+                          for plan, _ in plans]
+    fits = dict(plans)
     for i, (label, shape) in enumerate(cases):
         args = cs.kernel_inputs(*shape, seed=100 + i,
                                 device=torch.device("cuda"))
-        got = fn(*args, shape[3])
         ref = forest_predict_ref(*args, shape[3])
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item() if ref.numel() else 0.0
-        log(f"  {label} {shape}: max abs diff {err!r}")
-        if err != 0.0:
-            log(f"  FAILED at {label}")
-            return 1
+        for plan, f in fns:
+            if plan and (shape[5] != 1 or not fits[plan](shape[4], shape[3])):
+                continue
+            got = f(*args, shape[3])
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item() if ref.numel() else 0.0
+            tag = f" plan {plan}" if plan else ""
+            log(f"  {label} {shape}{tag}: max abs diff {err!r}")
+            if err != 0.0:
+                log(f"  FAILED at {label}{tag}")
+                return 1
     log("  every case bit-equal")
     return 0
 
 
 def timings(libs: dict, rounds: int) -> dict:
     """Min ms a launch of each build at each shape over alternating rounds
-    (the order reversed every other round), and the plain version's."""
+    (the order reversed every other round), and the plain version's; the
+    SO redesign's builds also under each of ``PLANS`` at the SO shapes."""
     import torch
     import chip_smoke as cs
     from repro_torch.kernels.tree_predict.ref import forest_predict_ref
-    fns = {name: predict_fn(path) for name, path in libs.items()}
-    times = {name: {label: [] for label, _ in SHAPES} for name in fns}
+    fns = {name: (predict_fn(path), None) for name, path in libs.items()}
+    for name, path in libs.items():
+        for plan, fits in build_plans(path):
+            fns[plan_name(name, plan)] = (predict_fn(path, plan), fits)
+    times = {name: {} for name in fns}
     extra = {}
     for label, shape in SHAPES:
         args = inputs(shape)
@@ -413,11 +544,13 @@ def timings(libs: dict, rounds: int) -> dict:
         log(f"{label} {shape}: plain {plain!r} ms; bound "
             f"{extra[label]['bound_ms']!r} ms ({nbytes} bytes, {ops} "
             "operations)")
-        order = list(fns)
+        order = [name for name, (_, fits) in fns.items()
+                 if fits is None or (shape[5] == 1
+                                     and fits(shape[4], shape[3]))]
         for rnd in range(rounds):
             for name in (order if rnd % 2 == 0 else order[::-1]):
-                times[name][label].append(cs.cuda_ms(
-                    lambda f=fns[name]: f(*args, shape[3]), REPS))
+                times[name].setdefault(label, []).append(cs.cuda_ms(
+                    lambda f=fns[name][0]: f(*args, shape[3]), REPS))
         del args
         torch.cuda.empty_cache()
     for name, by_shape in times.items():
@@ -435,7 +568,10 @@ def phases(lib_path: str, design: dict) -> dict:
     lib.tree_predict_probe_phases.argtypes = [ctypes.c_void_p, ctypes.c_int]
     fn = predict_fn(lib_path)
     out = {}
+    so = design is ROW_OWNED      # its phases count so_kernel alone
     for label, shape in SHAPES:
+        if so and shape[5] != 1:
+            continue
         args = inputs(shape)
         sums = (ctypes.c_ulonglong * 16)()
         fn(*args, shape[3])
@@ -501,7 +637,7 @@ def main() -> int:
                     rc = subprocess.run([sys.executable, __file__, "--check",
                                          libs[name]], stdout=f,
                                         stderr=subprocess.STDOUT,
-                                        timeout=300).returncode
+                                        timeout=900).returncode
             except subprocess.TimeoutExpired:
                 rc = "timed out"
             with open(out_log) as f:

@@ -158,11 +158,14 @@ def events() -> collections.Counter:
         return collections.Counter(_EVENTS)
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, *also: str) -> None:
     """Add one to ``wrapper.launches``, the launch count of a kernel's
-    wrapper, under a lock: the wrappers are called from many threads."""
+    wrapper, and to each counter named in ``also`` (a kind of launch), under
+    a lock: the wrappers are called from many threads."""
     with _COUNT_LOCK:
         wrapper.launches += 1
+        for name in also:
+            setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -41,12 +41,25 @@
 //     with its rows (32 × 56.5 MB through L2 at the photons step, not 3.53
 //     GB). Depth > 8 reads the leaves through L1.
 //
-// out = 1 (SO: a sub-forest per output) is one fused kernel, so_kernel: a
-// block stages up to 128 rows of x once (feature-major, so a warp's rows
-// gather from 32 banks) and streams its sub-forests' trees through a
-// cp.async ring: all warps walk a unit's (row, tree) pairs into a [trees]
-// [rows] tile of leaf values, then a thread per row adds its trees in
-// order. Deep trees that do not fit the ring are read through L1.
+// out = 1 (SO: a sub-forest per output, S of them) is one fused kernel,
+// so_kernel. Its work is the walks, not the bytes: at the photons SO step
+// (S = 368, out = 1, otherwise as above) the bound is 522 MB, 0.156 ms, but
+// the 883 M walks take 22 shared loads each (7 levels × feat, thr and x,
+// then the leaf), ~2.3 ms of the shared-memory pipe at one warp load a
+// clock, and ~75 instructions each. So no thread hands work to
+// another: a block stages R rows of x once (feature-major, so a
+// warp's 32 rows gather from 32 banks), and thread r of ring k owns row r
+// of the block's k-th, (k + K)-th, … sub-forests. It walks 4 trees at once
+// as independent chains, in byte offsets, and adds their leaves in tree
+// order to one fp32 register, then writes y after tree T-1: no value tile,
+// no block barrier in the loop. Lane k of a copying warp feeds ring k, a
+// slice of TS trees (feat, thr, leaf) at a time, by three bulk copies of
+// the 16-byte-aligned spans that hold them, into stages with a full and an
+// empty mbarrier each: a walking warp waits only for its own stage, and no
+// ring for another. R, K and TS come from the wrapper's plan
+// (ops.so_plan), a pure function of the shapes. Shapes whose rows and one
+// slice do not fit shared memory (deep trees, wide x) take so_l1_kernel:
+// the same walks, x and the trees read through L1.
 //
 // Ragged rows and columns are masked. The kernels allocate nothing (the
 // scratch comes from the wrapper) and do not synchronise; the launches run on
@@ -60,18 +73,14 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kRows = 32;            // rows of x a routing block stages
 constexpr int kRouteWarps = 8;       // route_kernel: 256 threads
-constexpr int kStageWarps = 4;       // warps that transpose x while staging
-constexpr int kPad = kWarp + 1;      // transposing buffer's row stride
-constexpr int kBufBytes = kStageWarps * kWarp * kPad * 4;
 constexpr int kForestBytes = 32 * 1024;   // route_kernel's tile of trees
 constexpr int kSumWarps = 8;         // sum_tma_kernel: adding warps, 32 rows each
 constexpr int kCpWarps = 16;         // sum_kernel: warps, 32 rows each
 constexpr int kCpRows = kCpWarps * kWarp;
 constexpr int kCols = 64;            // sum_kernel: columns a block, 2 a lane
-constexpr int kSoWarps = 16;         // so_kernel: 512 threads
-constexpr int kSoRowsMax = 128;      // so_kernel: rows a block, at most
-constexpr int kSoTrees = 32;         // so_kernel: trees a unit, at most
-constexpr int kSoStages = 2;         // so_kernel: units in its ring
+constexpr int kSoWarps = 16;         // so_kernel: 512 threads at most
+constexpr int kSoStages = 2;         // so_kernel: slices a ring
+constexpr int kSoChains = 4;         // so_kernel: walks a thread keeps going
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kSms = 132;
 
@@ -141,6 +150,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
 // the generic proxy's reads of a stage are ordered before the TMA's writes
 __device__ __forceinline__ void fence_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -168,34 +192,49 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 }
 
 // Rows [row0, row0 + R) of x[b] (rows >= n as zeros) into x_s[f * R + r],
-// R a multiple of 32. Warps below kStageWarps take 32 rows × 32 features at
-// a time: 32 coalesced row loads in flight into a padded buffer, then
-// columns out of it, conflict-free both ways.
-__device__ __forceinline__ void stage_x(const float* __restrict__ x_b,
-                                        int row0, int R, int n, int p,
-                                        float* __restrict__ x_s,
-                                        float* __restrict__ buf) {
+// R a multiple of 32, by warps 0 … nw-1, lane = row: a warp loads 8 pieces
+// of each of its 32 rows at once (4 features a piece where vec: p % 4 == 0
+// and x 16-byte aligned, else 1), then stores them, each store to 32 banks.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ x_b,
+                                           int row0, int R, int n, int p,
+                                           float* __restrict__ x_s, int nw,
+                                           int vec) {
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
-  if (warp >= kStageWarps) return;
-  float* wb = buf + warp * kWarp * kPad;
-  const int fblocks = (p + kWarp - 1) / kWarp;
-  for (int k = warp; k < fblocks * (R / kWarp); k += kStageWarps) {
-    const int f0 = (k % fblocks) * kWarp, r0 = (k / fblocks) * kWarp;
-    const int f = f0 + lane;
-    float v[kWarp];
+  const int width = vec ? 4 : 1;
+  const int pieces = (p + width - 1) / width;
+  const int row_groups = R / kWarp;
+  for (int it = warp; it < row_groups * ((pieces + 7) / 8); it += nw) {
+    const int r = (it % row_groups) * kWarp + lane;
+    const int q0 = (it / row_groups) * 8;
+    const bool live = row0 + r < n;
+    const float* xr = x_b + (long long)(live ? row0 + r : 0) * p;
+    float* xs = x_s + r;
+    if (vec) {
+      float4 v[8];
 #pragma unroll
-    for (int j = 0; j < kWarp; ++j) {
-      const int row = row0 + r0 + j;
-      v[j] = (row < n && f < p) ? __ldg(x_b + (long long)row * p + f) : 0.0f;
+      for (int u = 0; u < 8; ++u)
+        v[u] = live && q0 + u < pieces
+                   ? __ldg(reinterpret_cast<const float4*>(xr) + q0 + u)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (q0 + u >= pieces) break;
+        float* d = xs + 4 * (q0 + u) * R;
+        d[0] = v[u].x;
+        d[R] = v[u].y;
+        d[2 * R] = v[u].z;
+        d[3 * R] = v[u].w;
+      }
+    } else {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = live && q0 + u < pieces ? __ldg(xr + q0 + u) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (q0 + u < pieces) xs[(q0 + u) * R] = v[u];
     }
-#pragma unroll
-    for (int j = 0; j < kWarp; ++j) wb[j * kPad + lane] = v[j];
-    __syncwarp();
-#pragma unroll 8
-    for (int j = 0; j < kWarp; ++j)
-      if (f0 + j < p) x_s[(f0 + j) * R + r0 + lane] = wb[lane * kPad + j];
-    __syncwarp();
   }
 }
 
@@ -541,138 +580,274 @@ sum_tma_kernel(const __grid_constant__ CUtensorMap tm_leaf,
   store_sums(acc, y_bs, row0 + warp * kWarp, n, n_out, col_a);
 }  // sum_kernel
 
-// so_kernel's trees a unit: a tile of up to kSoTrees trees of one
-// sub-forest, its feat, thr and leaves one stage of the ring
-__host__ __device__ inline int so_tile(int T) {
-  return T < kSoTrees ? T : kSoTrees;
+// so_kernel's shared memory: the mbarriers (full, then empty: K·kSoStages
+// each), x_s [p][R], then K rings of kSoStages slices; a slice holds TS
+// trees' feat, thr and leaf, each copied as the 16-byte-aligned span that
+// covers it, so each part has room for TS·H (TS·L) values and 3 more
+// (ops.so_smem_bytes is the same sum)
+__host__ __device__ inline size_t so_bar_bytes(int K) {
+  return ((size_t)16 * K * kSoStages + 127) / 128 * 128;
 }
 
-__host__ __device__ inline size_t so_stage_bytes(int T, int depth) {
-  const size_t H = (1u << depth) - 1, L = 1u << depth;
-  return ((size_t)so_tile(T) * (8 * H + 4 * L) + 15) / 16 * 16;
+__host__ __device__ inline int so_part(int values) {   // floats, 16-byte units
+  return (values + 3 + 3) / 4 * 4;
 }
 
-// so_kernel's shared memory for R rows: kStaged, x_s then the ring (whose
-// first bytes serve as the transposing buffer while x is staged) then the
-// [kSoTrees][R] tile of leaf values; else the value tile only
-size_t so_bytes(int p, int R, int T, int depth, bool staged) {
-  const size_t vals = (size_t)kSoTrees * R * 4;
-  if (!staged) return vals;
-  size_t ring = kSoStages * so_stage_bytes(T, depth);
-  if (ring < (size_t)kBufBytes) ring = kBufBytes;
-  return (size_t)p * R * 4 + ring + vals;
+__host__ __device__ inline size_t so_slice_bytes(int TS, int depth) {
+  const int H = (1 << depth) - 1, L = 1 << depth;
+  return (size_t)4 * (2 * so_part(TS * H) + so_part(TS * L));
 }
 
-// Unit k of a block's sequence (sub-forest s0 + k / tiles, trees u0 … u0 +
-// un - 1 of it) into a ring stage: feat [un][H], thr [un][H], leaf [un][L].
-__device__ __forceinline__ void so_fill(unsigned char* stage,
+size_t so_bytes(int p, int R, int K, int TS, int depth) {
+  return so_bar_bytes(K) + (size_t)4 * p * R +
+         (size_t)K * kSoStages * so_slice_bytes(TS, depth);
+}
+
+template <bool kShared, typename V>
+__device__ __forceinline__ V so_load(const V* p) {
+  return kShared ? *p : __ldg(p);
+}
+
+// A float of shared memory at its 32-bit shared address, so that x's
+// gather costs one multiply-add for its address. x_s is read only after it
+// is staged, so the load needs no ordering against other memory.
+__device__ __forceinline__ float lds_f32(uint32_t a) {
+  float v;
+  asm("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+  return v;
+}
+
+// The walks of trees 0 … m-1 (m <= kSoChains; past m, tree m-1 again) for
+// one row, as independent chains: o[c] ends at 4 × (1 + the heap index of
+// tree c's leaf), in [4H + 4, 8H + 4]. f / t: the first tree's feat and thr
+// (trees H apart), x_r[f * xs]: the row's feature f. Offsets are kept in
+// bytes, one past the node (o' = 2·o, plus 4 to go right), so that a level
+// costs two adds, three loads, a multiply-add, a compare and the update.
+template <bool kShared>
+__device__ __forceinline__ void so_walk(int (&o)[kSoChains],
+                                        const int* __restrict__ f,
+                                        const float* __restrict__ t, int m,
+                                        int H, int depth,
+                                        const float* __restrict__ x_r,
+                                        int xs) {
+  const char* fc[kSoChains];
+  const char* tc[kSoChains];
+#pragma unroll
+  for (int c = 0; c < kSoChains; ++c) {
+    fc[c] = (const char*)(f + min(c, m - 1) * H - 1);
+    tc[c] = (const char*)(t + min(c, m - 1) * H - 1);
+    o[c] = 4;
+  }
+  const char* xb = (const char*)x_r;
+  const uint32_t xa = kShared ? smem_addr(x_r) : 0u;
+  const int xs4 = 4 * xs;
+  for (int level = 0; level < depth; ++level) {
+#pragma unroll
+    for (int c = 0; c < kSoChains; ++c) {
+      const int fi = so_load<kShared>((const int*)(fc[c] + o[c]));
+      const float th = so_load<kShared>((const float*)(tc[c] + o[c]));
+      const float v = kShared ? lds_f32(xa + fi * xs4)
+                              : __ldg((const float*)(xb + fi * xs4));
+      o[c] = 2 * o[c] + (v > th ? 4 : 0);
+    }
+  }
+}
+
+// acc plus the leaves of trees 0 … m-1 at o[] (so_walk's), in tree order
+// (l: the first tree's leaves, trees L apart)
+template <bool kShared>
+__device__ __forceinline__ float so_add(float acc, const int (&o)[kSoChains],
+                                        const float* __restrict__ l, int m,
+                                        int H, int L) {
+  float v[kSoChains];
+#pragma unroll
+  for (int c = 0; c < kSoChains; ++c)
+    v[c] = so_load<kShared>(
+        (const float*)((const char*)(l + min(c, m - 1) * L - H - 1) + o[c]));
+#pragma unroll
+  for (int c = 0; c < kSoChains; ++c)
+    if (c < m) acc = __fadd_rn(acc, v[c]);
+  return acc;
+}
+
+// Bytes of the 16-byte-aligned span of global memory that holds the n
+// floats at src, copied to dst by one bulk copy completing on `bar` if
+// `go`. The span reaches at most 12 bytes past either end of the values,
+// inside their allocation, whose ends are 16-byte aligned.
+__device__ __forceinline__ int so_copy(float* dst, const void* src, int n,
+                                       uint32_t bar, bool go) {
+  const uintptr_t a = (uintptr_t)src & ~(uintptr_t)15;
+  const int bytes =
+      (int)((((uintptr_t)src + 4 * (uintptr_t)n + 15) & ~(uintptr_t)15) - a);
+  if (go) bulk_copy(dst, (const void*)a, bytes, bar);
+  return bytes;
+}
+
+// where the value at `base` + i lands in its part of a stage: floats past
+// the part's start
+__device__ __forceinline__ int so_lead(const void* base, long long i) {
+  return (int)(((uint32_t)(uintptr_t)base / 4 + (uint32_t)i) & 3);
+}
+
+// Trees [tree0, tree0 + tn) of one sub-forest into a stage laid out for TS
+// trees, by this thread: three bulk copies completing the stage's `full`
+// mbarrier.
+__device__ __forceinline__ void so_fill(float* stage,
                                         const int* __restrict__ feat,
                                         const float* __restrict__ thr,
                                         const float* __restrict__ leaf,
-                                        long long tree0, int un, int H,
-                                        int L) {
-  int* f_s = (int*)stage;
-  float* t_s = (float*)(f_s + un * H);
-  float* l_s = t_s + un * H;
+                                        long long tree0, int tn, int TS,
+                                        int H, int L, uint32_t full) {
+  float* t_s = stage + so_part(TS * H);
+  float* l_s = t_s + so_part(TS * H);
   const int* f_g = feat + tree0 * H;
   const float* t_g = thr + tree0 * H;
   const float* l_g = leaf + tree0 * L;
-  for (int i = threadIdx.x; i < un * H; i += blockDim.x) {
-    cp_async4(f_s + i, f_g + i);
-    cp_async4(t_s + i, t_g + i);
-  }
-  for (int i = threadIdx.x; i < un * L; i += blockDim.x)
-    cp_async4(l_s + i, l_g + i);
+  fence_proxy();
+  mbar_expect_tx(full, so_copy(stage, f_g, tn * H, full, false) +
+                           so_copy(t_s, t_g, tn * H, full, false) +
+                           so_copy(l_s, l_g, tn * L, full, false));
+  so_copy(stage, f_g, tn * H, full, true);
+  so_copy(t_s, t_g, tn * H, full, true);
+  so_copy(l_s, l_g, tn * L, full, true);
 }
 
 // out = 1. grid: B·row_tiles·groups blocks (b, R rows, sub-forests [s0,
-// s1)), 16 warps. The block's units (a sub-forest's trees, kSoTrees at a
-// time) stream through a kSoStages-deep cp.async ring (kStaged; else the
-// trees and x are read through L1). For each unit the warps walk its (row,
-// tree) pairs, two at once, lane = row, into vals[tree][row]; then thread
-// r < R adds row r's values in tree order, and writes y after the
-// sub-forest's last unit.
-template <bool kStaged>
+// s1)); W = K·R/32 walking warps and one copying warp. Walking warp w is
+// rows 32·(w % (R/32)) … +31 of ring k = w / (R/32), whose sub-forests are
+// the k-th, (k + K)-th, … of the block's; their trees stream through the
+// ring's kSoStages stages, TS trees a slice, in order. Lane k of the
+// copying warp fills ring k, a stage as soon as the ring's R/32 warps have
+// released it: the lanes poll their rings without waiting, so no ring
+// waits for another's. The walking warps stage x meanwhile.
 __global__ void __launch_bounds__(kSoWarps * kWarp, 1)
 so_kernel(const float* __restrict__ x, const int* __restrict__ feat,
           const float* __restrict__ thr, const float* __restrict__ leaf,
           float* __restrict__ y, int n, int p, int S, int T, int depth, int R,
-          int row_tiles, int groups, int group) {
-  extern __shared__ __align__(16) float smem[];
+          int K, int TS, int row_tiles, int groups, int group, int vec) {
+  extern __shared__ __align__(128) unsigned char sbuf[];
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
   const int g = blockIdx.x % groups;
   const int rest = blockIdx.x / groups;
   const int row0 = (rest % row_tiles) * R;
   const int b = rest / row_tiles;
-  const int s0 = g * group, s1 = min(S, s0 + group);
+  const int s0 = g * group, N = min(S, s0 + group) - s0;
   const int H = (1 << depth) - 1;
   const int L = 1 << depth;
-  const int tile = so_tile(T);
-  const int tiles = (T + tile - 1) / tile;
-  const int units = (s1 - s0) * tiles;
-  const size_t stage_bytes = so_stage_bytes(T, depth);
-  const float* x_b = x + (long long)b * n * p;
-  float* x_s = smem;
-  unsigned char* ring = (unsigned char*)(smem + (kStaged ? p * R : 0));
-  size_t ring_bytes = kStaged ? kSoStages * stage_bytes : 0;
-  if (kStaged && ring_bytes < (size_t)kBufBytes) ring_bytes = kBufBytes;
-  float* vals = (float*)(ring + ring_bytes);
-  auto unit_tree0 = [&](int k) {
-    return ((long long)b * S + s0 + k / tiles) * T + (k % tiles) * tile;
-  };
-  if (kStaged) {
-    stage_x(x_b, row0, R, n, p, x_s, (float*)ring);
-    __syncthreads();           // the ring's bytes are free again
-    for (int k = 0; k < kSoStages - 1; ++k) {
-      if (k < units)
-        so_fill(ring + k * stage_bytes, feat, thr, leaf, unit_tree0(k),
-                min(tile, T - (k % tiles) * tile), H, L);
-      cp_async_commit();
+  const int W = K * (R / kWarp);
+  const int slice_floats = (int)(so_slice_bytes(TS, depth) / 4);
+  const uint32_t full0 = smem_addr(sbuf);
+  const uint32_t empty0 = full0 + 8 * K * kSoStages;
+  float* x_s = (float*)(sbuf + so_bar_bytes(K));
+  float* rings = x_s + (size_t)p * R;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K * kSoStages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, R / kWarp);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int pass = blockDim.x;              // (row, tree) pairs, 2 a thread
-  float acc = 0.0f;
-  for (int k = 0; k < units; ++k) {
-    const int u0 = (k % tiles) * tile;
-    const int un = min(tile, T - u0);
-    const long long tree0 = unit_tree0(k);
-    const int* f_u = feat + tree0 * H;
-    const float* t_u = thr + tree0 * H;
-    const float* l_u = leaf + tree0 * L;
-    if (kStaged) {
-      const int nx = k + kSoStages - 1;
-      if (nx < units)
-        so_fill(ring + (nx % kSoStages) * stage_bytes, feat, thr, leaf,
-                unit_tree0(nx), min(tile, T - (nx % tiles) * tile), H, L);
-      cp_async_commit();
-      cp_async_wait<kSoStages - 1>();
-      unsigned char* st = ring + (k % kSoStages) * stage_bytes;
-      f_u = (const int*)st;
-      t_u = (const float*)(f_u + un * H);
-      l_u = t_u + un * H;
-    }
-    __syncthreads();            // the unit staged; vals free again
-    for (int i = threadIdx.x; i < un * R; i += 2 * pass) {
-      const int j = min(i + pass, un * R - 1);       // a repeat past the end
-      const int ra = i % R, ua = i / R, rb = j % R, ub = j / R;
-      int na, nb;
-      walk2<kStaged>(x_s + ra, x_s + rb, R,
-                     x_b + (long long)min(row0 + ra, n - 1) * p,
-                     x_b + (long long)min(row0 + rb, n - 1) * p,
-                     f_u + ua * H, t_u + ua * H, f_u + ub * H, t_u + ub * H,
-                     depth, na, nb);
-      vals[ua * R + ra] = l_u[ua * L + na];
-      vals[ub * R + rb] = l_u[ub * L + nb];
-    }
-    __syncthreads();            // vals written; the stage may be refilled
-    if (threadIdx.x < R) {
-      for (int u = 0; u < un; ++u)
-        acc = __fadd_rn(acc, vals[u * R + threadIdx.x]);
-      if (u0 + un == T) {       // the sub-forest's last unit
-        const long long bs = (long long)b * S + s0 + k / tiles;
-        if (row0 + (int)threadIdx.x < n) y[bs * n + row0 + threadIdx.x] = acc;
-        acc = 0.0f;
+  __syncthreads();
+
+  if (warp == W) {      // the copying warp: lane k fills ring k
+    const int k = lane;
+    // the ring's next slice: trees t0 … of sub-forest s0 + s, into stage
+    // st for the use-th time
+    int s = k, t0 = 0, st = 0, use = 0;
+    long long idle = 0;
+    while (__any_sync(0xffffffffu, k < K && s < N)) {
+      const int slot = k * kSoStages + st;
+      const bool go = k < K && s < N &&
+                      (use == 0 || mbar_test(empty0 + 8 * slot, (use - 1) & 1));
+      if (go) {
+        so_fill(rings + slot * slice_floats, feat, thr, leaf,
+                ((long long)b * S + s0 + s) * T + t0, min(TS, T - t0), TS, H,
+                L, full0 + 8 * slot);
+        if (++st == kSoStages) st = 0, ++use;
+        if ((t0 += TS) >= T) {
+          t0 = 0;
+          s += K;
+        }
+      }
+      // no ring refilled for ~2^32 cycles (seconds): a broken pipeline
+      if (__any_sync(0xffffffffu, go)) {
+        idle = 0;
+      } else if (idle == 0) {
+        idle = clock64();
+      } else if (clock64() - idle > (1LL << 32)) {
+        __trap();
       }
     }
+    return;
+  }
+
+  const int k = warp / (R / kWarp);
+  const int r = (warp % (R / kWarp)) * kWarp + lane;
+  // so: stage
+  stage_rows(x + (long long)b * n * p, row0, R, n, p, x_s, W, vec);
+  asm volatile("bar.sync 1, %0;\n" ::"r"(W * kWarp) : "memory");
+  // so: start
+  const float* x_r = x_s + r;
+  int j = 0;
+  for (int s = s0 + k; s < s0 + N; s += K) {
+    float acc = 0.0f;
+    for (int t0 = 0; t0 < T; t0 += TS, ++j) {
+      const int slot = k * kSoStages + j % kSoStages;
+      mbar_wait(full0 + 8 * slot, (j / kSoStages) & 1);
+      // so: staged
+      const long long tree0 = ((long long)b * S + s) * T + t0;
+      const float* stage = rings + slot * slice_floats;
+      const int* f_u = (const int*)stage + so_lead(feat, tree0 * H);
+      const float* t_u = stage + so_part(TS * H) + so_lead(thr, tree0 * H);
+      const float* l_u = stage + 2 * so_part(TS * H) + so_lead(leaf, tree0 * L);
+      const int tn = min(TS, T - t0);
+      for (int u0 = 0; u0 < tn; u0 += kSoChains) {
+        const int m = min(kSoChains, tn - u0);
+        int hb[kSoChains];
+        so_walk<true>(hb, f_u + u0 * H, t_u + u0 * H, m, H, depth, x_r, R);
+        // so: walked
+        acc = so_add<true>(acc, hb, l_u + u0 * L, m, H, L);
+        // so: added
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    }
+    if (row0 + r < n) y[((long long)b * S + s) * n + row0 + r] = acc;
+  }
+  // so: done
+}  // so_kernel
+
+// out = 1 where so_kernel cannot stage a slice: grid B·row_tiles·groups
+// blocks (b, 32 rows, sub-forests [s0, s1)), 16 warps; warp w walks
+// sub-forests s0 + w, s0 + w + 16, … for lane = row, in tree order,
+// reading x and the trees through L1.
+__global__ void __launch_bounds__(kSoWarps * kWarp)
+so_l1_kernel(const float* __restrict__ x, const int* __restrict__ feat,
+             const float* __restrict__ thr, const float* __restrict__ leaf,
+             float* __restrict__ y, int n, int p, int S, int T, int depth,
+             int row_tiles, int groups, int group) {
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int g = blockIdx.x % groups;
+  const int rest = blockIdx.x / groups;
+  const int row = (rest % row_tiles) * kWarp + lane;
+  const int b = rest / row_tiles;
+  const int s1 = min(S, (g + 1) * group);
+  const int H = (1 << depth) - 1;
+  const int L = 1 << depth;
+  const float* x_r = x + ((long long)b * n + min(row, n - 1)) * p;
+  for (int s = g * group + warp; s < s1; s += kSoWarps) {
+    const long long tree0 = ((long long)b * S + s) * T;
+    float acc = 0.0f;
+    for (int u0 = 0; u0 < T; u0 += kSoChains) {
+      const int m = min(kSoChains, T - u0);
+      int hb[kSoChains];
+      so_walk<false>(hb, feat + (tree0 + u0) * H, thr + (tree0 + u0) * H, m,
+                     H, depth, x_r, 1);
+      acc = so_add<false>(acc, hb, leaf + (tree0 + u0) * L, m, H, L);
+    }
+    if (row < n) y[((long long)b * S + s) * n + row] = acc;
   }
 }
 
@@ -784,24 +959,38 @@ cudaError_t launch_sum_tma(const CUtensorMap& map, const uint16_t* idx,
   return cudaGetLastError();
 }
 
-template <bool kStaged>
+// R > 0: so_kernel with the plan (R rows, K rings, TS trees a slice);
+// R = 0: so_l1_kernel. The sub-forests are split into groups until the
+// launch fills the card twice, keeping at least 16 a block and the same
+// number for each of a block's K rings (16 warps for so_l1_kernel).
 cudaError_t launch_so(const float* x, const int* feat, const float* thr,
                       const float* leaf, float* y, int B, int S, int n, int p,
-                      int T, int depth, int R, cudaStream_t stream) {
-  const int row_tiles = (n + R - 1) / R;
-  // split the sub-forests until the launch fills the card twice, keeping
-  // at least 16 of them a block
+                      int T, int depth, int R, int K, int TS,
+                      cudaStream_t stream) {
+  const int rows = R > 0 ? R : kWarp;
+  const int streams = R > 0 ? K : kSoWarps;
+  const int row_tiles = (n + rows - 1) / rows;
   int groups = (2 * kSms + B * row_tiles - 1) / (B * row_tiles);
   groups = max(1, min(groups, (S + 15) / 16));
-  const int group = (S + groups - 1) / groups;
+  const int each = ((S + streams - 1) / streams + groups - 1) / groups;
+  const int group = each * streams;
   groups = (S + group - 1) / group;
-  const size_t smem = so_bytes(p, R, T, depth, kStaged);
-  auto kernel = so_kernel<kStaged>;
-  cudaError_t err = allow_smem(kernel, smem);
+  const unsigned blocks = (unsigned)((long long)B * row_tiles * groups);
+  if (R == 0) {
+    so_l1_kernel<<<blocks, kSoWarps * kWarp, 0, stream>>>(
+        x, feat, thr, leaf, y, n, p, S, T, depth, row_tiles, groups, group);
+    return cudaGetLastError();
+  }
+  const size_t smem = so_bytes(p, R, K, TS, depth);
+  if (R % kWarp || K < 1 || TS < 1 || K * (R / kWarp) >= kSoWarps ||
+      smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  const int vec = p % 4 == 0 && (uintptr_t)x % 16 == 0;
+  cudaError_t err = allow_smem(so_kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)((long long)B * row_tiles * groups), kSoWarps * kWarp,
-           smem, stream>>>(x, feat, thr, leaf, y, n, p, S, T, depth, R,
-                           row_tiles, groups, group);
+  so_kernel<<<blocks, (K * (R / kWarp) + 1) * kWarp, smem, stream>>>(
+      x, feat, thr, leaf, y, n, p, S, T, depth, R, K, TS, row_tiles, groups,
+      group, vec);
   return cudaGetLastError();
 }
 
@@ -813,27 +1002,19 @@ extern "C" {
 // launched). out > 1: for each chunk of tc trees, route_kernel writes the
 // chunk's leaf indices to `scratch` ([B, S, tc, npad] uint16, npad = n
 // rounded up to 8) and sum_kernel adds them to y in tree order. out = 1:
-// so_kernel, no scratch. Shapes are validated by the Python wrapper.
+// so_kernel with the wrapper's plan (so_rows rows, so_rings rings, so_trees
+// trees a slice), or so_l1_kernel where so_rows is 0; no scratch. Shapes
+// are validated by the Python wrapper.
 int tree_predict_launch(const float* x, const int* feat, const float* thr,
                         const float* leaf, float* y, uint16_t* scratch, int B,
                         int S, int n, int p, int T, int depth, int n_out,
-                        int tc, int npad, void* stream_ptr) {
+                        int tc, int npad, int so_rows, int so_rings,
+                        int so_trees, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
-  if (n_out == 1) {
-    // as many rows a block (a multiple of 32, up to 128) as shared memory
-    // holds beside the ring and the value tile; trees and x read through L1
-    // if not even 32 fit
-    int R = kSoRowsMax;
-    while (R > kWarp && so_bytes(p, R, T, depth, true) > kMaxSmem) R -= kWarp;
-    if (so_bytes(p, R, T, depth, true) <= kMaxSmem)
-      err = launch_so<true>(x, feat, thr, leaf, y, B, S, n, p, T, depth, R,
-                            stream);
-    else
-      err = launch_so<false>(x, feat, thr, leaf, y, B, S, n, p, T, depth,
-                             kSoRowsMax, stream);
-    return (int)err;
-  }
+  if (n_out == 1)
+    return (int)launch_so(x, feat, thr, leaf, y, B, S, n, p, T, depth,
+                          so_rows, so_rings, so_trees, stream);
   const bool x_shared =
       route_x_bytes(p) + kForestBytes <= kMaxSmem;
   const bool forest_shared = 8 * ((1 << depth) - 1) <= kForestBytes;

@@ -7,7 +7,8 @@ built at first use by :mod:`repro_torch.kernels.build`) on the current
 stream, without a sync, or raises. ``forest_predict.launches`` counts the
 calls that launched them (one call: a routing and a summing kernel per
 chunk of trees, or the fused SO kernel), so a run can show that its main
-path went through the kernel.
+path went through the kernel; ``forest_predict.so_ring_launches`` counts
+the SO calls whose plan (:func:`so_plan`) staged the trees in shared memory.
 """
 from __future__ import annotations
 
@@ -20,6 +21,10 @@ from repro_torch.kernels.tree_predict.ref import forest_predict_ref
 
 MAX_DEPTH = 16            # the kernels keep leaf indices as uint16
 SCRATCH_BYTES = 64 << 20  # leaf-index scratch of one chunk of trees, at most
+SMEM_PER_BLOCK = 232_448  # shared memory a block may use on an H100
+SO_STAGES = 2             # csrc: kSoStages, slices a ring
+SO_WARPS = 15             # walking warps a block at most (csrc: kSoWarps - 1)
+SO_CHAINS = 4             # csrc: kSoChains, walks a thread keeps going
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,7 +36,7 @@ def _lib() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launch functions' C signatures on a built library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tree_predict_launch.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
+    lib.tree_predict_launch.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
     lib.tree_predict_launch.restype = i32
     return lib
 
@@ -71,8 +76,60 @@ def tiling(B: int, S: int, T: int, n: int):
     return max(1, min(T, SCRATCH_BYTES // max(1, 2 * B * S * npad))), npad
 
 
-def launch(lib, x, feat, thr_val, leaf, depth: int):
-    """Launch the kernels of ``lib`` on checked CUDA tensors; returns y."""
+def so_slice_bytes(trees: int, depth: int) -> int:
+    """One stage of an SO ring (csrc: ``so_slice_bytes``): feat, thr and
+    leaf of ``trees`` trees, each copied as the 16-byte-aligned span that
+    covers it, so each part holds its values and 3 more, in 16-byte units."""
+    H, L = 2 ** depth - 1, 2 ** depth
+    return 4 * (2 * ((trees * H + 6) // 4 * 4) + (trees * L + 6) // 4 * 4)
+
+
+def so_smem_bytes(p: int, depth: int, rows: int, rings: int,
+                  trees: int) -> int:
+    """``so_kernel``'s shared memory (csrc: ``so_bytes``): a full and an
+    empty mbarrier a stage (rounded up to 128 bytes), x for ``rows`` rows,
+    ``rings`` rings of ``SO_STAGES`` slices of ``trees`` trees."""
+    bars = -(-16 * rings * SO_STAGES // 128) * 128
+    return (bars + 4 * p * rows
+            + rings * SO_STAGES * so_slice_bytes(trees, depth))
+
+
+def so_plan(B: int, S: int, T: int, depth: int, p: int, n: int):
+    """``(rows, rings, trees)`` for an SO launch (out = 1) at these shapes:
+    ``so_kernel`` stages x for ``rows`` rows (a multiple of 32) and feeds
+    ``rings`` sub-forests at once, ``trees`` trees a slice; None where not
+    even 32 rows and one ring of one-tree slices fit a block's shared
+    memory (``so_l1_kernel`` reads x and the trees through L1).
+
+    A pure function of the shapes. Of the plans that fit, it takes the one
+    with the most walks in flight (walking warps × trees a slice, at most
+    SO_CHAINS), then the most rows (each staged tree serves more rows),
+    then the largest slices. Rows stop at n rounded up to 32, rings at S
+    and at SO_WARPS walking warps."""
+    if so_smem_bytes(p, depth, 32, 1, 1) > SMEM_PER_BLOCK:
+        return None
+    best, best_key = None, None
+    for trees in {min(T, SO_CHAINS), min(T, 2), 1}:
+        for rows in range(32, min(128, -(-n // 32) * 32) + 1, 32):
+            rings = 0
+            while (rings < min(S, SO_WARPS // (rows // 32))
+                   and so_smem_bytes(p, depth, rows, rings + 1, trees)
+                   <= SMEM_PER_BLOCK):
+                rings += 1
+            key = (rings * rows // 32 * trees, rows, trees)
+            if rings and (best_key is None or key > best_key):
+                best, best_key = (rows, rings, trees), key
+    return best
+
+
+# the wrapper's plan of each SO shape it has launched
+_so_plan = functools.lru_cache(maxsize=1024)(so_plan)
+
+
+def launch(lib, x, feat, thr_val, leaf, depth: int, so=None):
+    """Launch the kernels of ``lib`` on checked CUDA tensors; returns y.
+    ``so``: the plan of an SO launch (:func:`so_plan`), None for the L1
+    kernel."""
     from repro_torch.kernels.build import check_launch
     B, n, p = x.shape
     S, T = feat.shape[1], feat.shape[2]
@@ -92,7 +149,7 @@ def launch(lib, x, feat, thr_val, leaf, depth: int):
         rc = lib.tree_predict_launch(
             x.data_ptr(), feat.data_ptr(), thr_val.data_ptr(),
             leaf.data_ptr(), y.data_ptr(), scratch.data_ptr(), B, S, n, p,
-            T, depth, n_out, tc, npad, stream)
+            T, depth, n_out, tc, npad, *(so or (0, 0, 0)), stream)
     check_launch("tree_predict", rc)
     return y
 
@@ -110,11 +167,19 @@ def forest_predict(x, feat, thr_val, leaf, depth: int):
         return forest_predict_ref(x, feat, thr_val, leaf, depth)
     if x.device.type != "cuda":
         raise ValueError(f"no tree_predict path for device {x.device}")
-    y = launch(_lib(), x, feat, thr_val, leaf, depth)
+    so = None
+    if leaf.shape[-1] == 1:
+        B, n, p = x.shape
+        so = _so_plan(B, feat.shape[1], feat.shape[2], depth, p, n)
+    y = launch(_lib(), x, feat, thr_val, leaf, depth, so)
     if y.numel():
         from repro_torch.kernels.build import count_launch
-        count_launch(forest_predict)
+        if so:
+            count_launch(forest_predict, "so_ring_launches")
+        else:
+            count_launch(forest_predict)
     return y
 
 
 forest_predict.launches = 0
+forest_predict.so_ring_launches = 0

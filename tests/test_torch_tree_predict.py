@@ -22,7 +22,10 @@ from repro.forest.packed import predict_forest as j_predict_forest
 from repro.kernels.tree_predict.ref import forest_predict_ref as j_ref
 from repro.tabgen import fit_artifacts
 from repro_torch.forest.packed import PackedForest, predict_forest
-from repro_torch.kernels.tree_predict.ops import forest_predict
+from repro_torch.kernels import build
+from repro_torch.kernels.tree_predict.ops import (SMEM_PER_BLOCK, SO_WARPS,
+                                                  forest_predict, so_plan,
+                                                  so_smem_bytes)
 from repro_torch.kernels.tree_predict.ref import forest_predict_ref
 from repro_torch.tabgen import artifacts_from_numpy
 
@@ -232,6 +235,17 @@ CUDA_CASES += [(3, 1, 4, 1, 37, 37, 97), (3, 37, 4, 1, 37, 1, 97),
                (15, 1, 400, 2, 37, 37, 8000), (2, 5, 400, 3, 37, 1, 130),
                (3, 1, 512, 3, 37, 37, 130), (3, 1, 1, 7, 37, 2, 97),
                (2, 3, 20, 4, 9, 6, 130)]
+# so_kernel's edges: T not a multiple of its 4-tree slices (5, 3, 1; slices
+# that start off a 16-byte boundary), n not a multiple of its rows, n = 1,
+# S below the sub-forests in flight (2; 17 split into groups of 15, the
+# last holding 2 for 15 rings), the pions width, and shapes it cannot stage
+# (depth 13 at p = 37, x of 2,000 features), which take so_l1_kernel
+SO_CASES = [(2, 20, 5, 7, 368, 1, 300), (2, 37, 3, 7, 37, 1, 130),
+            (2, 37, 1, 7, 37, 1, 130), (15, 368, 20, 7, 368, 1, 1000),
+            (2, 368, 20, 7, 368, 1, 1), (2, 2, 20, 7, 368, 1, 300),
+            (1, 17, 20, 7, 368, 1, 64), (4, 533, 20, 7, 533, 1, 300),
+            (2, 3, 4, 13, 37, 1, 97), (2, 5, 6, 4, 2000, 1, 97)]
+CUDA_CASES += SO_CASES
 
 
 @pytest.mark.cuda
@@ -241,8 +255,11 @@ def test_cuda_kernel_matches_plain(cuda_device, B, S, T, depth, p, out, n):
                            depth, p, out, n)
     args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
     before = forest_predict.launches
+    rings_before = forest_predict.so_ring_launches
     got = forest_predict(*args, depth)
     assert forest_predict.launches == before + 1
+    staged = out == 1 and so_plan(B, S, T, depth, p, n) is not None
+    assert forest_predict.so_ring_launches == rings_before + staged
     ref = forest_predict_ref(*args, depth)
     torch.cuda.synchronize()
     # the same trees in the same order, in fp32: equal to the bit
@@ -259,3 +276,66 @@ def test_cuda_kernel_refuses_depth_past_its_indices(cuda_device):
                          for a in arrays], 17)
     assert forest_predict(*[torch.from_numpy(a) for a in arrays],
                           17).shape == (1, 1, 5, 1)
+
+
+# ---------------------------------------------------------------------------
+# so_kernel's plan (CPU)
+# ---------------------------------------------------------------------------
+
+PLAN_SHAPES = sorted({(B, S, T, depth, p, n)
+                      for B, S, T, depth, p, out, n in CUDA_CASES if out == 1}
+                     | {(15, 368, 20, 7, 368, n) for n in (1, 1024, 8000)}
+                     | {(15, 533, 20, 7, 533, n) for n in (1, 1024, 8000)})
+
+
+@pytest.mark.parametrize("B,S,T,depth,p,n", PLAN_SHAPES)
+def test_so_plan_fits_a_block(B, S, T, depth, p, n):
+    """Every plan fits a block's shared memory and its threads: rows a
+    multiple of 32 and no more than n needs, rings no more than S, slices
+    no longer than T, at most SO_WARPS walking warps."""
+    plan = so_plan(B, S, T, depth, p, n)
+    if plan is None:
+        return
+    rows, rings, trees = plan
+    assert so_smem_bytes(p, depth, rows, rings, trees) <= SMEM_PER_BLOCK
+    assert rows % 32 == 0 and 32 <= rows <= max(32, -(-n // 32) * 32)
+    assert 1 <= rings <= S and 1 <= trees <= min(T, 4)
+    assert rings * rows // 32 <= SO_WARPS
+
+
+def test_so_plan_at_the_photons_and_pions_widths():
+    """The generation path's SO shapes are staged: 96 rows and 5 rings of
+    4-tree slices at p = 368, 64 rows and 7 rings at p = 533 (depth 7,
+    T = 20), 15 walking warps each."""
+    assert so_plan(15, 368, 20, 7, 368, 8000) == (96, 5, 4)
+    assert so_plan(15, 533, 20, 7, 533, 8000) == (64, 7, 4)
+    for p in (368, 533):
+        assert so_smem_bytes(p, 7, *so_plan(15, p, 20, 7, p, 8000)) \
+            <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("depth", [1, 4, 7, 9, 10, 12, 13, 16])
+@pytest.mark.parametrize("p", [2, 37, 368, 533, 1500, 1700, 2000])
+def test_so_plan_is_none_exactly_where_no_slice_fits(depth, p):
+    """None (the L1 kernel) exactly where 32 rows of x and one ring of
+    one-tree slices do not fit a block."""
+    fits = so_smem_bytes(p, depth, 32, 1, 1) <= SMEM_PER_BLOCK
+    assert (so_plan(2, 5, 20, depth, p, 300) is not None) == fits
+
+
+def test_so_plan_is_a_pure_function_of_the_shapes():
+    """The same shapes give the same plan, whatever was asked before."""
+    first = [so_plan(*shape) for shape in PLAN_SHAPES]
+    assert [so_plan(*shape) for shape in reversed(PLAN_SHAPES)] == first[::-1]
+    assert so_plan(15, 368, 20, 7, 368, 8000) == so_plan(
+        15, 368, 20, 7, 368, 8000)
+
+
+def test_count_launch_counts_kinds_beside_launches():
+    """count_launch adds one to launches and to each named counter."""
+    def wrapper():
+        pass
+    wrapper.launches = wrapper.so_ring_launches = 0
+    build.count_launch(wrapper)
+    build.count_launch(wrapper, "so_ring_launches")
+    assert (wrapper.launches, wrapper.so_ring_launches) == (2, 1)
