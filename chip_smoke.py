@@ -113,10 +113,10 @@
 9. Drives the out-of-core sharded training path at the same width (MO,
    n_t=2 x 2 classes of 8,000 rows: 4 ensembles of 320,000 weight-masked
    rows): ``ingest`` into a store of 4,096-row shards, a store fit under a
-   one-rank NCCL group on a 1x1 ``DeviceMesh`` (pipelined, checkpointed;
-   hist launch count checked), a resume that launches nothing, the same
-   rows in memory (serial) and the store without a process group, all bit-
-   equal; generates 1,000 rows from the store model; runs the ingest and
+   one-rank NCCL group on a 1x1 ``DeviceMesh`` (checkpointed; hist
+   launch count checked), a resume that launches nothing, the same rows
+   in memory and the store without a process group, all bit-equal;
+   generates 1,000 rows from the store model; runs the ingest and
    training CLIs on a small store against the API fit. Logs rows/s of the
    ingest and seconds per ensemble of each fit.
 10. Serves smollm-135m at its full width (30 layers, d_model 576, 9/3
@@ -1980,9 +1980,9 @@ def same_model(a, b) -> bool:
 
 def drive_scaleout(device, tmp):
     """The out-of-core sharded training path at photons width: ingest a
-    store, fit from it under a one-rank NCCL group (pipelined, with a
-    checkpoint), resume, hold it against the same rows in memory (serial)
-    and against the group-free store route, generate from it, and run the
+    store, fit from it under a one-rank NCCL group (with a checkpoint),
+    resume, hold it against the same rows in memory and against the
+    group-free store route, generate from it, and run the
     ingest and training CLIs. Returns the hist launches of its fits."""
     import torch.distributed as dist
     from repro_torch.data.store import DatasetStore, ingest
@@ -2036,9 +2036,8 @@ def drive_scaleout(device, tmp):
     try:
         mesh = forest_mesh(1, 1, device)
         ckpt = os.path.join(tmp, "ckpt")
-        art, got = timed_fit(f"store, 1x1 {backend} mesh, pipelined", store,
-                             None, mesh=mesh, pipeline="auto",
-                             checkpoint_dir=ckpt)
+        art, got = timed_fit(f"store, 1x1 {backend} mesh", store, None,
+                             mesh=mesh, checkpoint_dir=ckpt)
         expect = expected_hist_launches(art)
         if on_card and (got != expect or got == 0):
             raise AssertionError(f"store fit: {got} hist launches, expected "
@@ -2053,23 +2052,19 @@ def drive_scaleout(device, tmp):
             raise AssertionError(f"store resume: {histogram.launches} "
                                  "launches or another model")
         log("store resume: 0 hist launches, the same model")
-        mem, _ = timed_fit(f"in memory, 1x1 {backend} mesh, serial", X, y,
-                           mesh=mesh, pipeline=None)
+        mem, _ = timed_fit(f"in memory, 1x1 {backend} mesh", X, y,
+                           mesh=mesh)
         if not same_model(art, mem):
             raise AssertionError("the store fit differs from the in-memory "
                                  "fit of the same rows")
-        log("store fit (pipelined) == in-memory fit (serial): bit-equal")
+        log("store fit == in-memory fit: bit-equal")
     finally:
         dist.destroy_process_group()
-    free, _ = timed_fit("store, no process group, serial", store, None,
-                        pipeline=None)
+    free, _ = timed_fit("store, no process group", store, None)
     if not same_model(art, free):
         raise AssertionError("the group-free store route differs")
     log(f"store fit on the {backend} mesh == store fit without a group: "
         "bit-equal")
-    log(f"pipelined vs serial on the store: "
-        f"{times[f'store, 1x1 {backend} mesh, pipelined']!r} s vs "
-        f"{times['store, no process group, serial']!r} s")
 
     forest_predict.launches = 0
     gen = TabularGenerator(cfg)

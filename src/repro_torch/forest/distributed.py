@@ -194,7 +194,7 @@ def make_distributed_fit(shards: Shards, fcfg: ForestConfig, *, seed: int,
 
 
 # ---------------------------------------------------------------------------
-# input-build stage (host side; the pipeline runs it on its prefetch thread)
+# input build (host side)
 # ---------------------------------------------------------------------------
 
 def build_row_shards(X_np, cid_full, mins, maxs, perm, shards: Shards):

@@ -5,9 +5,8 @@ Long-running services scrape ``GET /metrics`` (see
 (``train_forest``, ``ingest``, ``serve_forest``, ``refresh``) have no
 server to scrape, so their ``--metrics-dump`` flag writes the exposition
 format at exit through :func:`dump`, from the process-wide
-:func:`repro_torch.obs.default_registry` that the fit pipeline and
-``DatasetStore`` ingest instrument (``serve_forest`` passes its server's
-own registry).
+:func:`repro_torch.obs.default_registry` that ``DatasetStore`` ingest
+instruments (``serve_forest`` passes its server's own registry).
 
 The module is also a tiny CLI for smoke tests and docs examples:
 

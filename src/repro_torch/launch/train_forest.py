@@ -22,11 +22,8 @@ the environment; the process group is NCCL on GPUs and gloo with
       --device cpu --out model
 
 A ``1x1`` mesh without ``torchrun`` builds a one-rank group itself. The
-batch loop of the sharded trainer is pipelined by default (a prefetch
-thread builds the inputs, a writer thread the checkpoints; see
-``repro_torch.tabgen.fitting.PipelineConfig``): ``--prefetch-depth``,
-``--sync-checkpoint``, or ``--serial`` for the serial loop, with the same
-artifacts either way.
+sharded trainer trains its batches one after another, writing each
+batch's checkpoint as it finishes, like the single-device one.
 """
 from __future__ import annotations
 
@@ -102,14 +99,6 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ensembles-per-batch", type=int, default=0)
-    ap.add_argument("--serial", action="store_true",
-                    help="the serial batch loop instead of the pipeline")
-    ap.add_argument("--prefetch-depth", type=int, default=2,
-                    help="bounded-queue depth between the pipeline's "
-                         "stages (1 = double buffering)")
-    ap.add_argument("--sync-checkpoint", action="store_true",
-                    help="gather and write batch_*.npz on the training "
-                         "thread instead of the writer thread")
     ap.add_argument("--out", default=None,
                     help="base path for the saved .npz/.json artifact pair")
     ap.add_argument("--metrics-dump", default=None, metavar="PATH",
@@ -168,26 +157,20 @@ def main(argv=None):
             int8_codes=args.int8_codes)
         mesh, made = parse_mesh(args.mesh, device)
         owned = owned or made
-        pipeline = (None if args.serial else fitting.PipelineConfig(
-            prefetch_depth=args.prefetch_depth,
-            async_checkpoint=not args.sync_checkpoint))
         if mesh is None and args.data_dir:
             say(f"trainer: out-of-core store fit on one rank ({device}, "
                 "rows read from the store's shards)")
         elif mesh is None:
             say(f"trainer: single-device ({device})")
         else:
-            mode = ("serial" if pipeline is None else
-                    f"pipelined (prefetch_depth={pipeline.prefetch_depth}, "
-                    f"async_checkpoint={pipeline.async_checkpoint})")
             shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
-            say(f"trainer: sharded over {shape} ranks on {device}, {mode}")
+            say(f"trainer: sharded over {shape} ranks on {device}")
 
         t0 = time.time()
         art = fitting.fit_artifacts(
             X, y, fcfg, seed=args.seed, checkpoint_dir=args.checkpoint_dir,
             resume=args.resume, ensembles_per_batch=args.ensembles_per_batch,
-            mesh=mesh, pipeline=pipeline, device=device)
+            mesh=mesh, device=device)
         if device.type == "cuda":
             torch.cuda.synchronize()
         wall = time.time() - t0

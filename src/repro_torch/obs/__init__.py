@@ -10,9 +10,10 @@ Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
   (:func:`render_prometheus`), dumped offline by
   ``repro_torch.launch.metrics``.
 * :mod:`repro_torch.obs.tracing` — ring-buffered :class:`Tracer` spans
-  threaded through the serving hot path, the fit pipeline, the generate
-  path (``sample.*``: :func:`repro_torch.tabgen.sampling.sample_async`
-  and ``SampleHandle.result``; ``sample.solve`` carries ``steps``, the
+  threaded through the serving hot path, the fit (``fit.batch``), the
+  generate path (``sample.*``:
+  :func:`repro_torch.tabgen.sampling.sample_async` and
+  ``SampleHandle.result``; ``sample.solve`` carries ``steps``, the
   solver steps, ``lanes``, the sub-forests of an ensemble, and ``trees``,
   the trees of a sub-forest) and ``DatasetStore`` ingest, with optional
   JSONL export and a mirror of each scoped span into ``torch.profiler``

@@ -240,7 +240,7 @@ class MetricsRegistry:
     Serving components default to a *private* registry apiece so tests and
     benchmark arms never bleed counters into each other; ``serve_http``
     hands one shared registry to every component so ``/metrics`` is a
-    single family set.  Offline paths (fit pipeline, ingest) use the
+    single family set.  Offline paths (fit, ingest) use the
     module-level default registry from :func:`repro_torch.obs.default_registry`.
     """
 

@@ -4,7 +4,7 @@ A :class:`Span` is a named interval with attributes; a :class:`Tracer`
 collects completed spans into a bounded ring (old spans evict, memory is
 O(capacity) forever).  Two usage shapes:
 
-* ``with tracer.span("fit.dispatch", batch=3) as sp:`` — scoped work on
+* ``with tracer.span("fit.batch", batch=3) as sp:`` — scoped work on
   one thread.  Nesting is tracked per-thread, so ``sp.parent_id`` links
   child to parent and a flamegraph falls out of the JSONL export.
 * ``sp = tracer.start("serve.queue", ...); ... sp.end()`` — intervals

@@ -7,8 +7,7 @@ Layers, bottom-up:
   package's format and :func:`artifacts_from_numpy`.
 * :mod:`repro_torch.tabgen.fitting`    — :func:`fit_artifacts` and
   :func:`extend_artifacts`: the single-device and the sharded trainer
-  (out-of-core stores, a pipelined batch loop: :class:`PipelineConfig`),
-  with streaming checkpoints, resume and warm start.
+  (out-of-core stores), with streaming checkpoints, resume and warm start.
 * :mod:`repro_torch.tabgen.samplers`   — the named solver registry
   (``euler``/``heun`` for flow, ``ddim``/``em`` for diffusion).
 * :mod:`repro_torch.tabgen.sampling`   — :func:`sample` and
@@ -22,7 +21,7 @@ from repro_torch.tabgen.artifacts import (  # noqa: F401
     ForestArtifacts, artifacts_from_numpy)
 from repro_torch.tabgen.facade import TabularGenerator  # noqa: F401
 from repro_torch.tabgen.fitting import (  # noqa: F401
-    PipelineConfig, extend_artifacts, fit_artifacts)
+    extend_artifacts, fit_artifacts)
 from repro_torch.tabgen.imputation import impute  # noqa: F401
 from repro_torch.tabgen.samplers import (  # noqa: F401
     default_sampler, get_sampler, list_samplers, register_sampler)

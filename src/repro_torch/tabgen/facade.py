@@ -80,13 +80,13 @@ class TabularGenerator:
 
     def fit(self, X, y=None, *, seed: int = 0,
             checkpoint_dir: Optional[str] = None, resume: bool = False,
-            ensembles_per_batch: int = 0, mesh=None, pipeline="auto",
+            ensembles_per_batch: int = 0, mesh=None,
             device: Optional[Device] = None) -> "TabularGenerator":
         """Train on ``device`` (``None``: the GPU, or raise; ``"cpu"`` runs
         the plain PyTorch path). A schema one-hot/integer-encodes the raw
         rows first, so a schema-aware fit takes rows in memory, not a
         dataset store. The other arguments go to :func:`fit_artifacts`
-        (``mesh`` and ``pipeline`` to its sharded trainer)."""
+        (``mesh`` to its sharded trainer)."""
         if self.schema is not None:
             if _is_store(X):
                 raise ValueError(
@@ -97,7 +97,7 @@ class TabularGenerator:
         self.artifacts = fit_artifacts(
             X, y, self.fcfg, seed=seed, checkpoint_dir=checkpoint_dir,
             resume=resume, ensembles_per_batch=ensembles_per_batch,
-            mesh=mesh, pipeline=pipeline, device=device)
+            mesh=mesh, device=device)
         return self
 
     def generate(self, n: int, *, sampler: Optional[str] = None,

@@ -41,21 +41,16 @@ weight-masked class conditioning (no padded class blocks), the ensembles
 of a batch over the model ranks (:mod:`repro_torch.forest.distributed`).
 Its noise adds the data rank: ``(seed, eid, split, shard)``, and
 ``noise(eid, split, shape, shard)`` replaces it. A store fit without a
-mesh takes this route on one rank, with no process group. Its batch loop
-runs pipelined by default (:class:`PipelineConfig`): a prefetch thread
-builds and uploads the inputs, on a CUDA stream of its own, while the
-main thread trains, and a writer thread gathers the results and writes
-the checkpoints; ``pipeline=None`` is the serial loop, and both give the
-same bits. Its checkpoints are the JAX package's (``trainer="sharded"``):
-either package resumes the other's.
+mesh takes this route on one rank, with no process group. It uploads
+its rows once and trains its batches in the single-device route's loop,
+one after another. Its checkpoints are the JAX package's
+(``trainer="sharded"``): either package resumes the other's.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-import queue
-import threading
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -66,7 +61,7 @@ from repro_torch.core import interpolants as itp
 from repro_torch.forest.binning import edges_with_sentinel, pack_codes, transform
 from repro_torch.forest.boosting import fit_ensembles, lanes_per_ensemble
 from repro_torch.kernels.dispatch import Device, resolve_device
-from repro_torch.obs import default_registry, default_tracer
+from repro_torch.obs import default_tracer
 from repro_torch.tabgen.artifacts import (RESULT_FIELDS, ForestArtifacts,
                                          scaler_span_host)
 from repro_torch.tabgen.sampling import stream_seed
@@ -336,187 +331,6 @@ def _run_grid_batches(run_batch, grid, bs: int, *,
 
 
 # ---------------------------------------------------------------------------
-# the pipelined grid driver (the sharded trainer's batch loop)
-# ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class PipelineConfig:
-    """Knobs of the sharded trainer's pipelined batch loop.
-
-    ``prefetch_depth`` bounds both queues between the stages: the prefetch
-    thread builds at most this many batches' inputs ahead of the training
-    loop, and at most this many trained batches wait for the writer (the
-    backpressure that bounds host memory). ``async_checkpoint`` gathers the
-    results and writes the checkpoints on the writer thread; ``False``
-    writes them on the training thread (inputs still prefetch).
-    """
-    prefetch_depth: int = 2
-    async_checkpoint: bool = True
-
-
-_STOP = object()
-
-
-def _run_grid_batches_pipelined(dispatch, collect, grid, bs: int, *,
-                                checkpoint_dir: Optional[str], resume: bool,
-                                fingerprint: dict, prefetch,
-                                pcfg: PipelineConfig,
-                                warm_base: Optional[dict] = None,
-                                commit: bool = True):
-    """Producer/consumer version of :func:`_run_grid_batches`, over the
-    same batches, with the same results:
-
-    * prefetch thread: ``prefetch(chunk) -> inputs`` (host input build and
-      upload; skipped for batches the manifest already has);
-    * calling thread: ``dispatch(inputs) -> result`` (the training, with
-      every collective of the fit on this one thread);
-    * writer thread: ``collect(result, n) -> {field: np}`` (waits for the
-      batch, not for the device) and the durable ``batch_*.npz`` and
-      manifest writes (``commit``).
-
-    A stage that fails sets a shared stop event, the queues drain, and the
-    first error is raised on the calling thread. A batch is marked done in
-    the manifest only after its file is committed, so a crash resumes from
-    the last committed batch.
-    """
-    manifest = (_ckpt.GridManifest(checkpoint_dir, fingerprint,
-                                   warm_base=warm_base)
-                if checkpoint_dir else None)
-    done = manifest.load_done(resume) if manifest else set()
-
-    batches = [(b0, grid[b0:b0 + bs]) for b0 in range(0, len(grid), bs)]
-    depth = max(1, pcfg.prefetch_depth)
-    in_q: queue.Queue = queue.Queue(maxsize=depth)
-    out_q: queue.Queue = queue.Queue(maxsize=depth)
-    stop = threading.Event()
-    lock = threading.Lock()
-    errors: list = []
-    batch_np: dict = {}
-    tracer = default_tracer()
-    metrics = default_registry()
-    h_prefetch = metrics.histogram(
-        "fit_prefetch_seconds", "Per-batch host input-build time "
-        "(fit.prefetch span durations)")
-    h_dispatch = metrics.histogram(
-        "fit_dispatch_seconds", "Per-batch training time on the calling "
-        "thread (fit.dispatch span durations)")
-    h_write = metrics.histogram(
-        "fit_write_seconds", "Per-batch gather + checkpoint-commit time "
-        "(fit.write span durations)")
-    c_batches = metrics.counter(
-        "fit_batches", "Ensemble-grid batches by disposition", ("status",))
-
-    def _put(q, item):
-        """Bounded put that gives up when another stage failed."""
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def _get(q):
-        while not stop.is_set():
-            try:
-                return q.get(timeout=0.05)
-            except queue.Empty:
-                continue
-        return _STOP
-
-    def _fail(exc):
-        with lock:
-            errors.append(exc)
-        stop.set()
-
-    def _producer():
-        try:
-            for b0, chunk in batches:
-                if (b0, len(chunk)) in done:
-                    item = (b0, chunk, None)     # committed: nothing to build
-                else:
-                    with tracer.span("fit.prefetch", batch=b0) as sp:
-                        inputs = prefetch(chunk)
-                    h_prefetch.observe(sp.duration_s)
-                    item = (b0, chunk, inputs)
-                if not _put(in_q, item):
-                    return
-            _put(in_q, _STOP)
-        except Exception as exc:  # noqa: BLE001 — raised on the caller
-            _fail(exc)
-
-    def _finish(b0, chunk, result):
-        with tracer.span("fit.write", batch=b0) as sp:
-            res_np = collect(result, len(chunk))
-            if manifest and commit:
-                _ckpt.write_batch_npz(checkpoint_dir, b0, res_np)
-                manifest.mark_done((b0, len(chunk)))
-            with lock:
-                batch_np[b0] = res_np
-        h_write.observe(sp.duration_s)
-
-    def _writer():
-        try:
-            while True:
-                item = _get(out_q)
-                if item is _STOP:
-                    return
-                _finish(*item)
-        except Exception as exc:  # noqa: BLE001 — raised on the caller
-            _fail(exc)
-
-    threads = [threading.Thread(target=_producer, name="tabgen-prefetch",
-                                daemon=True)]
-    if pcfg.async_checkpoint:
-        threads.append(threading.Thread(target=_writer, name="tabgen-writer",
-                                        daemon=True))
-    for th in threads:
-        th.start()
-    completed = False
-    try:
-        while True:
-            item = _get(in_q)
-            if item is _STOP:
-                break
-            b0, chunk, inputs = item
-            if inputs is None:
-                res_np = _ckpt.read_batch_npz(checkpoint_dir, b0)
-                with lock:
-                    batch_np[b0] = res_np
-                c_batches.inc(1, status="cached")
-                continue
-            with tracer.span("fit.dispatch", batch=b0) as sp:
-                result = dispatch(inputs)
-            h_dispatch.observe(sp.duration_s)
-            c_batches.inc(1, status="dispatched")
-            if pcfg.async_checkpoint:
-                if not _put(out_q, (b0, chunk, result)):
-                    break
-            else:
-                _finish(b0, chunk, result)
-        if pcfg.async_checkpoint and not stop.is_set():
-            _put(out_q, _STOP)
-        completed = True
-    except Exception as exc:  # noqa: BLE001 — one error path
-        _fail(exc)
-    finally:
-        # KeyboardInterrupt and the like skip the except above: stop the
-        # stages so the joins cannot hang
-        if not completed:
-            stop.set()
-        for th in threads:
-            th.join()
-    if errors:
-        raise errors[0]
-
-    results = {}
-    for b0, chunk in batches:
-        for j, (ti, yi) in enumerate(chunk):
-            results[(ti, yi)] = {k: v[j] for k, v in batch_np[b0].items()}
-    return results
-
-
-# ---------------------------------------------------------------------------
 # the single-device trainer
 # ---------------------------------------------------------------------------
 
@@ -528,7 +342,7 @@ def _is_store(X) -> bool:
 def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
                   seed: int = 0, checkpoint_dir: Optional[str] = None,
                   resume: bool = False, ensembles_per_batch: int = 0,
-                  mesh=None, row_chunk: int = 65536, pipeline="auto",
+                  mesh=None, row_chunk: int = 65536,
                   warm_start: Optional[ForestArtifacts] = None,
                   device: Optional[Device] = None,
                   noise: Optional[NoiseFn] = None) -> ForestArtifacts:
@@ -553,11 +367,8 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
     ``X`` may be a :class:`repro_torch.data.store.DatasetStore`: such a fit
     always takes the sharded trainer, on one rank with no process group
     when there is no mesh; class stats come from the store (unless ``y``
-    is given) and the rows are read from its shards. ``pipeline``
-    (``"auto"``, a :class:`PipelineConfig` or ``None`` for the serial
-    loop) steers the sharded trainer's batch loop; the single-device
-    trainer ignores it. On the sharded route ``noise`` is called as
-    ``noise(eid, split, shape, shard)``.
+    is given) and the rows are read from its shards. On the sharded route
+    ``noise`` is called as ``noise(eid, split, shape, shard)``.
     """
     if isinstance(mesh, str):
         if mesh != "auto":
@@ -565,11 +376,6 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
                              "or 'auto'")
         from repro_torch.launch.mesh import auto_forest_mesh
         mesh = auto_forest_mesh()
-    if pipeline == "auto":
-        pipeline = PipelineConfig()
-    elif not (pipeline is None or isinstance(pipeline, PipelineConfig)):
-        raise ValueError(f"pipeline={pipeline!r}: expected 'auto', None, or "
-                         "a PipelineConfig")
     device = resolve_device(device)
     if mesh is not None or _is_store(X):
         from repro_torch.forest.distributed import Shards
@@ -581,7 +387,7 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
             X, y, fcfg, shards, device=device, seed=seed,
             checkpoint_dir=checkpoint_dir, resume=resume,
             ensembles_per_batch=ensembles_per_batch, row_chunk=row_chunk,
-            pipeline=pipeline, warm_start=warm_start, noise=noise)
+            warm_start=warm_start, noise=noise)
     stats = None
     if warm_start is not None:
         Xs = X if hasattr(X, "shape") else np.asarray(X, np.float32)
@@ -682,25 +488,18 @@ def fit_artifacts(X, y=None, fcfg: ForestConfig = ForestConfig(), *,
 # the sharded trainer
 # ---------------------------------------------------------------------------
 
-def _upload(host, device, stream):
-    """Host tensors to ``device``: on a CUDA device, pinned and copied on
-    ``stream``, with the event that marks the copies done; else as they
-    are (the CPU) and no event."""
+def _upload(host, device):
+    """Host tensors to ``device``: on a CUDA device, pinned and copied
+    without blocking on the current stream; else as they are (the CPU)."""
     if device.type != "cuda":
-        return tuple(t.to(device) for t in host), None
-    with torch.cuda.stream(stream):
-        out = tuple(t.pin_memory().to(device, non_blocking=True)
-                    for t in host)
-        event = torch.cuda.Event()
-        event.record(stream)
-    return out, event
+        return tuple(t.to(device) for t in host)
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in host)
 
 
 def _fit_artifacts_sharded(X, y, fcfg: ForestConfig, shards, *,
                            device: torch.device, seed: int,
                            checkpoint_dir: Optional[str], resume: bool,
                            ensembles_per_batch: int, row_chunk: int,
-                           pipeline: Optional[PipelineConfig],
                            warm_start: Optional[ForestArtifacts] = None,
                            noise: Optional[NoiseFn] = None
                            ) -> ForestArtifacts:
@@ -796,71 +595,27 @@ def _fit_artifacts_sharded(X, y, fcfg: ForestConfig, shards, *,
     warm_base = (None if warm_start is None else
                  {"config": dataclasses.asdict(warm_start.config),
                   "grid": [fcfg.n_t, n_y]})
-    on_cuda = device.type == "cuda"
-    # the pipeline uploads on a stream of its own; the serial loop on the
-    # current one
-    upload_stream = (torch.cuda.Stream(device)
-                     if on_cuda and pipeline is not None else None)
     row_cache: dict = {}
 
     def rows():
-        """This rank's rows on the device and the event of their upload
-        (None once they are there). Built on first use, so a resume with
-        every batch committed reads no row; only one thread calls it (the
-        serial loop's, or the pipeline's prefetch thread)."""
-        if "rows" in row_cache:
-            return row_cache["rows"], None
-        host = build_row_shards(X_np, cid_full, mins, maxs, perm, shards)
-        row_cache["rows"], event = _upload(host, device, upload_stream)
-        return row_cache["rows"], event
+        """This rank's rows on the device, built and uploaded on first use,
+        so a resume with every batch committed reads no row."""
+        if "rows" not in row_cache:
+            host = build_row_shards(X_np, cid_full, mins, maxs, perm, shards)
+            row_cache["rows"] = _upload(host, device)
+        return row_cache["rows"]
 
-    def inputs(chunk):
-        """Everything one batch needs, padded to the batch size."""
+    def run_batch(chunk):
         padded = pad(chunk)
-        return (*rows(), build_batch_inputs(padded, ts, n_y),
-                warm_slices(padded))
+        res = fit(*rows(), *build_batch_inputs(padded, ts, n_y),
+                  warm=warm_slices(padded))
+        return {k: getattr(res, k)[:len(chunk)].cpu().numpy()
+                for k in RESULT_FIELDS}
 
-    def train(dev_rows, event, batch, warm):
-        if event is not None:
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(event)
-            for t in dev_rows:
-                t.record_stream(stream)
-        return fit(*dev_rows, *batch, warm=warm)
-
-    if pipeline is None:
-        def run_batch(chunk):
-            res = train(*inputs(chunk))
-            return {k: getattr(res, k)[:len(chunk)].cpu().numpy()
-                    for k in RESULT_FIELDS}
-
-        results = _run_grid_batches(run_batch, grid, bs,
-                                    checkpoint_dir=checkpoint_dir,
-                                    resume=resume, fingerprint=fingerprint,
-                                    warm_base=warm_base, commit=commit)
-    else:
-        def dispatch(batch_inputs):
-            res = train(*batch_inputs)
-            if not on_cuda:
-                return {k: getattr(res, k) for k in RESULT_FIELDS}, None
-            # the results to pinned host memory on this stream; the writer
-            # waits for this batch's event, not for the device
-            host = {k: getattr(res, k).to("cpu", non_blocking=True)
-                    for k in RESULT_FIELDS}
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            return host, done
-
-        def collect(result, n_real):
-            host, done = result
-            if done is not None:
-                done.synchronize()
-            return {k: v[:n_real].numpy() for k, v in host.items()}
-
-        results = _run_grid_batches_pipelined(
-            dispatch, collect, grid, bs, checkpoint_dir=checkpoint_dir,
-            resume=resume, fingerprint=fingerprint, prefetch=inputs,
-            pcfg=pipeline, warm_base=warm_base, commit=commit)
+    results = _run_grid_batches(run_batch, grid, bs,
+                                checkpoint_dir=checkpoint_dir, resume=resume,
+                                fingerprint=fingerprint, warm_base=warm_base,
+                                commit=commit)
     arts = ForestArtifacts.from_grid_results(results, fcfg.n_t, n_y, mins,
                                              maxs, classes, counts, fcfg,
                                              device)

@@ -41,8 +41,7 @@ from repro_torch.config import ForestConfig
 from repro_torch.data.store import ingest
 from repro_torch.forest import distributed as tdist
 from repro_torch.launch.mesh import forest_mesh
-from repro_torch.tabgen import (PipelineConfig, TabularGenerator,
-                                fit_artifacts)
+from repro_torch.tabgen import TabularGenerator, fit_artifacts
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FIELDS = ("feat", "thr_val", "leaf", "best_round", "rounds_run", "val_curve",
@@ -190,39 +189,30 @@ def test_one_rank_fit_matches_jax_1x1_mesh(name, kw):
     tart = fitting._fit_artifacts_sharded(
         X, y, ForestConfig(**cfg), tdist.Shards.one(),
         device=torch.device("cpu"), seed=SEED, checkpoint_dir=None,
-        resume=False, ensembles_per_batch=0, row_chunk=65536, pipeline=None,
-        noise=noise)
+        resume=False, ensembles_per_batch=0, row_chunk=65536, noise=noise)
     assert_matches(arrays(tart), {f: np.asarray(getattr(jart, f))
                                   for f in FIELDS})
 
 
-def test_store_fit_equals_in_memory_and_pipeline_equals_serial(
-        tmp_path, one_rank_group):
+def test_store_fit_equals_in_memory(tmp_path, one_rank_group):
     """A store fit (no mesh) equals the in-memory sharded fit on a 1x1
-    mesh, bit for bit; the pipelined loop (double-buffered, or with
-    synchronous writes) equals the serial one, checkpoints included."""
+    mesh, bit for bit, checkpoints included."""
     X, y = moons()
     cfg = ForestConfig(**BASE, multi_output=True)
     store = ingest(((X[s:s + 30], y[s:s + 30]) for s in range(0, N_ROWS, 30)),
                    str(tmp_path / "store"), shard_rows=40)
-    serial = fit_artifacts(X, y, cfg, seed=SEED, mesh=one_rank_group,
-                           pipeline=None, device="cpu",
-                           checkpoint_dir=str(tmp_path / "ck_serial"),
+    mem = fit_artifacts(X, y, cfg, seed=SEED, mesh=one_rank_group,
+                        device="cpu", checkpoint_dir=str(tmp_path / "ck_mem"),
+                        ensembles_per_batch=4)
+    stored = fit_artifacts(store, None, cfg, seed=SEED, device="cpu",
+                           checkpoint_dir=str(tmp_path / "ck_store"),
                            ensembles_per_batch=4)
-    piped = fit_artifacts(store, None, cfg, seed=SEED, device="cpu",
-                          checkpoint_dir=str(tmp_path / "ck_piped"),
-                          ensembles_per_batch=4)
-    sync = fit_artifacts(store, None, cfg, seed=SEED, device="cpu",
-                         mesh=one_rank_group, ensembles_per_batch=4,
-                         pipeline=PipelineConfig(prefetch_depth=1,
-                                                 async_checkpoint=False))
-    assert_same(serial, piped)
-    assert_same(serial, sync)
+    assert_same(mem, stored)
     for name in ("batch_0.npz", "batch_4.npz"):      # a tail batch of 2
-        a = np.load(tmp_path / "ck_serial" / name)
-        b = np.load(tmp_path / "ck_piped" / name)
+        a = np.load(tmp_path / "ck_mem" / name)
+        b = np.load(tmp_path / "ck_store" / name)
         assert all(np.array_equal(a[k], b[k]) for k in a.files)
-    assert piped.lineage["store"]["fingerprint"] == store.fingerprint
+    assert stored.lineage["store"]["fingerprint"] == store.fingerprint
 
 
 def test_facade_fits_a_mesh_and_refuses_a_store_with_a_schema(
@@ -230,7 +220,7 @@ def test_facade_fits_a_mesh_and_refuses_a_store_with_a_schema(
     X, y = moons()
     cfg = ForestConfig(**BASE)
     gen = TabularGenerator(cfg).fit(X, y, seed=SEED, mesh=one_rank_group,
-                                    pipeline=None, device="cpu")
+                                    device="cpu")
     ref = fit_artifacts(X, y, cfg, seed=SEED, mesh=one_rank_group,
                         device="cpu")
     assert_same(gen.artifacts, ref)
@@ -416,8 +406,7 @@ def test_ingest_and_train_clis(tmp_path):
                        n_bins=8, reg_lambda=1.0)
     assert_same(art, fit_artifacts(DatasetStore(d), None, cfg,
                                    device="cpu"))
-    again = train_forest.main(["--data-dir", d, "--mesh", "1x1", "--serial"]
-                              + flags)
+    again = train_forest.main(["--data-dir", d, "--mesh", "1x1"] + flags)
     assert_same(art, again)
     assert not dist.is_initialized()
 

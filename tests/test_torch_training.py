@@ -777,7 +777,7 @@ def test_fit_routes_meshes_and_stores(small_data, tmp_path):
     """What the port used to refuse it now routes: ``mesh="auto"`` on a
     host without GPUs is the single-device fit, a dataset store takes the
     sharded trainer on one rank (its lineage names the store), and a
-    malformed mesh or pipeline is refused."""
+    malformed mesh is refused."""
     from repro_torch.data.store import ingest
     X, y = small_data
     auto = fit_artifacts(X, y, SMALL, mesh="auto", device="cpu")
@@ -788,8 +788,6 @@ def test_fit_routes_meshes_and_stores(small_data, tmp_path):
     assert art.lineage["store"]["n_rows"] == len(X)
     with pytest.raises(ValueError, match="mesh="):
         fit_artifacts(X, y, SMALL, mesh="4x2", device="cpu")
-    with pytest.raises(ValueError, match="pipeline="):
-        fit_artifacts(store, None, SMALL, pipeline="fast", device="cpu")
 
 
 # ---------------------------------------------------------------------------
