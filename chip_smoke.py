@@ -57,10 +57,14 @@
 6. Drives the port's generation path through ``TabularGenerator`` at the
    full width of the CaloForest photons model (method=flow, MO trees,
    n_t=100, n_trees=20, max_depth=7, p=368, n_y=15; random weights from a
-   seed, built on the device): euler with two padding buckets, heun, euler
-   at n=120,000, ddim and em on the same arrays as a diffusion model, and an
-   impute of 512 rows. Checks shapes, finiteness, padding invariance,
-   observed cells and the kernel's launch count per call.
+   seed, built on the device): euler with two padding buckets, each called
+   twice (the first call solves eagerly and captures a CUDA graph, the
+   second replays it), the same for SO trees of that width on one class,
+   heun, euler at n=120,000, ddim and em on the same arrays as a diffusion
+   model, and an impute of 512 rows. Checks shapes, finiteness, padding
+   invariance, replayed rows bit-equal to eager ones, the ``graph``
+   attribute of ``sample.solve``, observed cells and the kernel's launch
+   count per call.
 7. Drives the forest serving plane at the same width: a ``ModelRegistry``
    of three seeded photons models (leaves 5.65 GB each) with a device
    budget of two, acquired A, B, C, A (each demotion must free >= 0.95 of
@@ -476,6 +480,7 @@ def impute_launches(art) -> int:
 def drive_main_path(flow, n_rows, n_small, pad_small):
     """Serve the requests of the main path; returns launches per call."""
     from repro_torch.kernels.tree_predict.ops import forest_predict
+    from repro_torch.obs import default_tracer
     diffusion = dataclasses.replace(
         flow, config=dataclasses.replace(flow.config, method="diffusion"))
     gen_flow, gen_diff = generator_for(flow), generator_for(diffusion)
@@ -483,9 +488,10 @@ def drive_main_path(flow, n_rows, n_small, pad_small):
     counts = {}
     outputs = {}
 
-    def call(label, gen, n, expect, **kw):
+    def call(label, gen, n, expect, graph="eager", **kw):
         """One request; returns whether the device was still busy when
-        generate_async returned (it must not wait for the device)."""
+        generate_async returned (it must not wait for the device). The
+        call's ``sample.solve`` must read ``graph`` on the card."""
         forest_predict.launches = 0
         t0 = time.perf_counter()
         handle = gen.generate_async(n, **kw)
@@ -498,22 +504,48 @@ def drive_main_path(flow, n_rows, n_small, pad_small):
             raise AssertionError(f"{label}: bad output {X.shape} {y.shape}")
         if got != expect:
             raise AssertionError(f"{label}: {got} launches, expected {expect}")
+        solve, = [s for s in default_tracer().trace(handle.trace_id)
+                  if s.name == "sample.solve"]
+        read = solve.attrs["graph"]
+        if read != (graph if flow.device.type == "cuda" else "eager"):
+            raise AssertionError(f"{label}: the solve read graph={read!r}, "
+                                 f"expected {graph!r}")
         counts[label] = got
         outputs[label] = (X, y)
         log(f"{label}: n={n} {dt:.4f} s, {n / dt:.1f} rows/s, "
-            f"{got} launches")
+            f"{got} launches, graph={read}")
         return busy
 
+    def replayed(label, gen, n, **kw):
+        """A bucketed key's second call, with the first call's seed:
+        ``label``'s first call solved eagerly and captured, this one
+        replays. Its launches and rows must be the eager call's."""
+        call(f"{label} replay", gen, n, counts[label], graph="replay", **kw)
+        (Xe, ye), (Xr, yr) = outputs[label], outputs[f"{label} replay"]
+        if not (np.array_equal(Xe, Xr) and np.array_equal(ye, yr)):
+            raise AssertionError(f"{label}: replayed rows differ from eager")
+        log(f"{label}: replayed rows bit-equal to the eager call's")
+
     small, big = f"euler pad_to={pad_small}", f"euler pad_to={4 * pad_small}"
-    call(small, gen_flow, n_small, n_t - 1, sampler="euler", seed=1,
-         pad_to=pad_small)
-    call(big, gen_flow, n_small, n_t - 1, sampler="euler", seed=1,
-         pad_to=4 * pad_small)
+    for label, pad in ((small, pad_small), (big, 4 * pad_small)):
+        kw = dict(sampler="euler", seed=1, pad_to=pad)
+        call(label, gen_flow, n_small, n_t - 1, graph="capture", **kw)
+        replayed(label, gen_flow, n_small, **kw)
     (Xa, ya), (Xb, yb) = outputs[small], outputs[big]
     if not (np.array_equal(Xa, Xb) and np.array_equal(ya, yb)):
         raise AssertionError("padding changed the generated rows")
     log(f"padding invariance: rows equal at pad_to={pad_small} and "
         f"{4 * pad_small}")
+    # SO trees at the same width (p scalar-leaf sub-forests), one class
+    so = random_artifacts(dataclasses.replace(flow.config,
+                                              multi_output=False),
+                          1, p, n_small, seed=1, device=flow.device)
+    label, kw = f"SO euler pad_to={pad_small}", dict(
+        sampler="euler", seed=1, pad_to=pad_small)
+    gen_so = generator_for(so)
+    call(label, gen_so, n_small, n_t - 1, graph="capture", **kw)
+    replayed(label, gen_so, n_small, **kw)
+    del gen_so, so
     call("heun", gen_flow, n_rows, 2 * (n_t - 1), sampler="heun", seed=2)
     busy = call("euler", gen_flow, n_rows, n_t - 1, sampler="euler", seed=3)
     if flow.device.type == "cuda":

@@ -17,13 +17,15 @@ Threads share one lock over building and loading: two threads that reach a
 kernel first at the same moment (an HTTP thread imputing while the serving
 scheduler dispatches) build it once, and the second loads what the first
 built. Temp files carry the process and thread id besides. The wrappers
-count their launches through :func:`count_launch`, under a lock of its own.
+count their launches through :func:`count_launch`, under a lock of its own
+(a CUDA graph's capture records them, and each replay adds them).
 :func:`events` counts the ``nvcc`` runs and the libraries loaded, per
 kernel (:mod:`repro_torch.analysis.runtime` budgets them over a region).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -161,11 +163,42 @@ def events() -> collections.Counter:
 def count_launch(wrapper, *also: str) -> None:
     """Add one to ``wrapper.launches``, the launch count of a kernel's
     wrapper, and to each counter named in ``also`` (a kind of launch), under
-    a lock: the wrappers are called from many threads."""
+    a lock: the wrappers are called from many threads. Inside
+    :func:`recorded_launches` this thread's launches are recorded there
+    instead."""
+    rec = getattr(_RECORDING, "counts", None)
+    if rec is not None:
+        for name in ("launches",) + also:
+            rec[wrapper, name] += 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
         for name in also:
             setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Within the block, :func:`count_launch` on this thread adds to the
+    yielded ``Counter`` of ``(wrapper, counter name)`` and not to the
+    counters. A CUDA graph's capture runs no kernel, so it records its
+    launches; each replay runs them and adds them (:func:`add_launches`)."""
+    counts = _RECORDING.counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = None
+
+
+def add_launches(counts) -> None:
+    """Add a :func:`recorded_launches` count to the counters, under the
+    lock of :func:`count_launch`."""
+    with _COUNT_LOCK:
+        for (wrapper, name), k in counts.items():
+            setattr(wrapper, name, getattr(wrapper, name) + k)
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -14,8 +14,11 @@ Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
   generate path (``sample.*``:
   :func:`repro_torch.tabgen.sampling.sample_async` and
   ``SampleHandle.result``; ``sample.solve`` carries ``steps``, the
-  solver steps, ``lanes``, the sub-forests of an ensemble, and ``trees``,
-  the trees of a sub-forest) and ``DatasetStore`` ingest, with optional
+  solver steps, ``lanes``, the sub-forests of an ensemble, ``trees``,
+  the trees of a sub-forest, and ``graph``: ``"eager"``, or for a
+  bucketed call on a CUDA device ``"capture"`` the first time and
+  ``"replay"`` after, :mod:`repro_torch.tabgen.solve_graph`) and
+  ``DatasetStore`` ingest, with optional
   JSONL export and a mirror of each scoped span into ``torch.profiler``
   as a ``record_function`` range of the same name
   (``REPRO_OBS_TORCH_TRACE=1``, or ``Tracer(torch_annotations=True)``).

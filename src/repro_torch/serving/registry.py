@@ -166,19 +166,30 @@ class ModelHandle:
                 return b
         return worst  # oversize request: exact size
 
+    def padding(self, n: int, seed: int) -> Optional[int]:
+        """The ``pad_to`` a request of ``n`` rows is served at: its
+        :meth:`bucket`, or None for an oversize request. That one solves
+        at its exact size all the same (``sample`` pads an unbucketed call
+        to its largest class), but a size of its own need not come back,
+        so it takes no CUDA graph (:mod:`repro_torch.tabgen.solve_graph`)
+        and leaves the buckets' graphs in place."""
+        b = self.bucket(n, seed)
+        return b if b in self.buckets else None
+
     def generate_async(self, n: int, sampler: str, *, seed: int,
                        pad_to: Optional[int] = None):
         """Non-blocking dispatch; the scheduler's waiter resolves it. On a
         mesh, through the registry's ``dispatch`` (which refuses a handle
         that a swap has replaced)."""
-        pad_to = self.bucket(n, seed) if pad_to is None else pad_to
+        pad_to = self.padding(n, seed) if pad_to is None else pad_to
         if self._registry is not None:
             return self._registry.dispatch(self.name, n, sampler, seed=seed,
                                            pad_to=pad_to,
                                            version=self.version)[1]
         return self.enqueue(n, sampler, seed=seed, pad_to=pad_to)
 
-    def enqueue(self, n: int, sampler: str, *, seed: int, pad_to: int):
+    def enqueue(self, n: int, sampler: str, *, seed: int,
+                pad_to: Optional[int]):
         """This rank's part of a batch: the solve (on a mesh, the sharded
         solve and the gathers) and the copy to the host, enqueued."""
         return self._generator().generate_async(
@@ -468,7 +479,7 @@ class ModelRegistry:
             handle = self.acquire(name)
             return handle, handle.enqueue(
                 n, sampler, seed=seed,
-                pad_to=handle.bucket(n, seed) if pad_to is None else pad_to)
+                pad_to=handle.padding(n, seed) if pad_to is None else pad_to)
         with self.stream.lock:
             handle = self.peek(name)
             if version is not None and version != handle.version:
@@ -479,10 +490,10 @@ class ModelRegistry:
                 raise ValueError(f"model {name!r} does not serve sampler "
                                  f"{sampler!r}; served: "
                                  f"{list(handle.samplers)}")
-            pad_to = handle.bucket(n, seed) if pad_to is None else pad_to
+            pad_to = handle.padding(n, seed) if pad_to is None else pad_to
             self.stream.publish("batch", model=name, n=int(n),
                                 sampler=sampler, seed=int(seed),
-                                pad_to=int(pad_to))
+                                pad_to=None if pad_to is None else int(pad_to))
             with self._applying():
                 handle = self.acquire(name)
                 return handle, handle.enqueue(n, sampler, seed=seed,

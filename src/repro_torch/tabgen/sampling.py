@@ -33,7 +33,9 @@ another thread than the issue: ``sample.issue`` (the whole of
 ``sample.x1``, ``sample.solve`` (``steps``: the solver's ``n_t - 1``;
 ``lanes``: the sub-forests of a (timestep, class) ensemble, ``n_sub``, 1
 for multi-output trees and ``p`` for single-output ones; ``trees``: T, the
-trees of a sub-forest; on a CUDA device the host enqueuing every step),
+trees of a sub-forest; ``graph``: ``"eager"``, ``"capture"`` or
+``"replay"``, below; on a CUDA device the host enqueuing every step, or
+one graph's replay),
 ``sample.compact`` (``rows``; ``padding_rows``, the rows dropped on the
 device) and ``sample.copy`` (``bytes`` copied to the host);
 ``sample.result`` (``rows``) over ``sample.result.wait`` and
@@ -41,6 +43,14 @@ device) and ``sample.copy`` (``bytes`` copied to the host);
 over). None inside the solver's step loop. With
 ``REPRO_OBS_TORCH_TRACE=1`` each is a ``torch.profiler`` range too
 (:mod:`repro_torch.obs.tracing`).
+
+A bucketed call (``pad_to`` given) on one CUDA device with a
+deterministic sampler replays its solve as one CUDA graph
+(:mod:`repro_torch.tabgen.solve_graph`): the first call of its
+``(sampler, [n_y, m, p])`` for the artifacts solves eagerly and captures
+the graph (``graph="capture"``), later ones copy their x1 into it and
+replay it (``"replay"``), bit-equal; every other call solves eagerly
+(``"eager"``).
 
 ``mesh`` shards the solve over a ``(data, model)`` ``DeviceMesh`` of ranks
 (:mod:`repro_torch.launch.mesh`), one process per device. It is a
@@ -70,6 +80,7 @@ import torch.distributed as dist
 from repro_torch.core import interpolants as itp
 from repro_torch.forest.packed import PackedForest
 from repro_torch.obs import default_tracer
+from repro_torch.tabgen import solve_graph
 from repro_torch.tabgen.artifacts import (ForestArtifacts, class_span,
                                           unscale, unscale_host)
 from repro_torch.tabgen.samplers import default_sampler, get_sampler
@@ -400,38 +411,58 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
             m = int(pad_to)
         sp.attrs.update(n_y=n_y, m=m, sampler=name)
         device = artifacts.device
-        ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff,
-                           fcfg.t_schedule, device=device)
-        generator = None
-        if spec.stochastic:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(stream_seed(seed, _SOLVE_STREAM))
+        key = solve_graph.graph_key(device, sampler=name,
+                                    stochastic=spec.stochastic, pad_to=pad_to,
+                                    shape=(n_y, m, artifacts.p), mesh=mesh)
+        graph = solve_graph.lookup(artifacts, key) if key else None
+        ts = generator = None
+        if graph is None:
+            ts = itp.timesteps(fcfg.method, fcfg.n_t, fcfg.eps_diff,
+                               fcfg.t_schedule, device=device)
+            if spec.stochastic:
+                generator = torch.Generator(device=device)
+                generator.manual_seed(stream_seed(seed, _SOLVE_STREAM))
 
         def x1(classes=None, rows=None):
             with tracer.span("sample.x1", trace_id=tid):
                 return row_noise(seed, n_y, m, artifacts.p, device, classes,
                                  rows)
 
+        def solve(x1_all):
+            return solve_all_classes(
+                artifacts.feat, artifacts.thr_val, artifacts.leaf, x1_all,
+                artifacts.mins, artifacts.maxs, ts, solver_fn=spec.fn,
+                depth=fcfg.max_depth, n_t=fcfg.n_t,
+                multi_output=fcfg.multi_output, eps=fcfg.eps_diff,
+                generator=generator)
+
         # a rank of a mesh draws its block of x1 inside the solve
         x1_all = x1() if mesh is None else None
-        with tracer.span("sample.solve", trace_id=tid, steps=fcfg.n_t - 1,
-                         lanes=artifacts.feat.shape[2],
-                         trees=artifacts.feat.shape[3]):
-            if mesh is None:
-                x_all = solve_all_classes(
-                    artifacts.feat, artifacts.thr_val, artifacts.leaf,
-                    x1_all, artifacts.mins, artifacts.maxs, ts,
-                    solver_fn=spec.fn, depth=fcfg.max_depth, n_t=fcfg.n_t,
-                    multi_output=fcfg.multi_output, eps=fcfg.eps_diff,
-                    generator=generator)
-            else:
-                x_all = solve_sharded(artifacts, mesh, ts, m=m,
-                                      solver_fn=spec.fn, x1=x1,
-                                      generator=generator)
-        with tracer.span("sample.compact", trace_id=tid, rows=n,
-                         padding_rows=n_y * m - n):
-            x, y = compact(x_all, per_class, np.asarray(artifacts.classes),
-                           perm)
+        # a replay's static output is read by compact before the next
+        # replay may overwrite it
+        with graph.use() if graph else contextlib.nullcontext():
+            with tracer.span("sample.solve", trace_id=tid,
+                             steps=fcfg.n_t - 1,
+                             lanes=artifacts.feat.shape[2],
+                             trees=artifacts.feat.shape[3],
+                             graph="eager") as ss:
+                if graph is not None:
+                    ss.attrs["graph"] = "replay"
+                    x_all = graph.replay(x1_all)
+                elif mesh is None:
+                    x_all = solve(x1_all)
+                    if key is not None:
+                        ss.attrs["graph"] = "capture"
+                        solve_graph.capture(artifacts, key, solve, x1_all,
+                                            ts)
+                else:
+                    x_all = solve_sharded(artifacts, mesh, ts, m=m,
+                                          solver_fn=spec.fn, x1=x1,
+                                          generator=generator)
+            with tracer.span("sample.compact", trace_id=tid, rows=n,
+                             padding_rows=n_y * m - n):
+                x, y = compact(x_all, per_class,
+                               np.asarray(artifacts.classes), perm)
         with tracer.span("sample.copy", trace_id=tid, bytes=0) as cp:
             ready = None
             if device.type == "cuda":

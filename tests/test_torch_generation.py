@@ -31,6 +31,7 @@ from repro_torch.tabgen import (ForestArtifacts, TabularGenerator,
                                 sample_async, sample_labels)
 from repro_torch.tabgen import samplers as tsamplers
 from repro_torch.tabgen import sampling as TS
+from repro_torch.tabgen import solve_graph
 from repro_torch.tabgen.artifacts import rescale, unscale
 from repro_torch.tabgen.imputation import clamped_solve
 from repro_torch.tabgen.imputation import impute as port_impute
@@ -320,6 +321,34 @@ def test_pad_to_bucket_same_samples(request, sampler, art_name):
                     pad_to=TS.NOISE_BLOCK + 30)
     np.testing.assert_array_equal(y1, y2)
     np.testing.assert_array_equal(G1, G2)
+
+
+@pytest.mark.parametrize("device,sampler,pad_to,mesh", [
+    ("cpu", "euler", 1024, None), ("cuda", "euler", None, None),
+    ("cuda", "euler", 1024, object()), ("cuda", "em", 1024, None)],
+    ids=["cpu", "unbucketed", "mesh", "em"])
+def test_solve_graph_bypasses(device, sampler, pad_to, mesh):
+    """The solve runs eagerly on the CPU, without a bucket, on a mesh and
+    for a stochastic sampler: no graph key."""
+    stochastic = tsamplers.get_sampler(sampler).stochastic
+    assert solve_graph.graph_key(device, sampler=sampler,
+                                 stochastic=stochastic, pad_to=pad_to,
+                                 shape=(15, 1024, 368), mesh=mesh) is None
+
+
+@pytest.mark.parametrize("sampler", ["euler", "heun", "ddim"])
+def test_solve_graph_keys_bucketed_cuda_calls(sampler):
+    """A bucketed call of a deterministic sampler on a CUDA device has a
+    key; two calls at one shape share it, another shape or sampler not."""
+    def key(shape=(15, 1024, 368), name=sampler):
+        return solve_graph.graph_key(
+            torch.device("cuda", 0), sampler=name,
+            stochastic=tsamplers.get_sampler(name).stochastic,
+            pad_to=shape[1], shape=shape)
+    assert key() is not None
+    assert key() == key(tuple(np.int64(s) for s in (15, 1024, 368)))
+    assert key((15, 256, 368)) != key()
+    assert key(name="euler" if sampler != "euler" else "heun") != key()
 
 
 @pytest.mark.parametrize("sampler,art_name", [("euler", "flow_so"),

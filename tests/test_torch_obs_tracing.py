@@ -118,12 +118,14 @@ def test_a_call_records_its_eight_spans(gen, how):
 def test_the_solve_span_counts_lanes_and_trees(multi_output, lanes):
     """``sample.solve`` carries the sub-forests of an ensemble (``lanes``:
     p for single-output trees, 1 for multi-output ones) and the trees of
-    each (``trees``), beside ``steps``."""
+    each (``trees``), beside ``steps``; ``graph`` reads ``eager``, since
+    only a CUDA device replays a captured solve."""
     g = make_gen(multi_output)
     X, tid = call(g, "generate_async")
     solve, = [s for s in default_tracer().trace(tid)
               if s.name == "sample.solve"]
-    assert solve.attrs == {"steps": N_T - 1, "lanes": lanes, "trees": 2}
+    assert solve.attrs == {"steps": N_T - 1, "lanes": lanes, "trees": 2,
+                           "graph": "eager"}
     assert X.shape == (11, 4)
 
 
