@@ -270,16 +270,44 @@ TWO_KERNELS = {
 
 def row_owned_launch(lib, plan=None):
     """The wrapper's C signature; ``plan`` (rows, rings, trees) in place of
-    ``ops.so_plan``'s for SO shapes."""
+    ``ops.so_plan``'s for SO shapes. A build whose launcher does not yet
+    report its summing kernels (no ``sums`` out-parameter) is called with
+    the signature it has."""
     from repro_torch.kernels.tree_predict import ops
-    ops.declare(lib)
+    with open(os.path.join(os.path.dirname(lib._name), SOURCE)) as f:
+        reports = "int* sums" in f.read()
+    if reports:
+        ops.declare(lib)
+    else:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.tree_predict_launch.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+        lib.tree_predict_launch.restype = i32
+
+    def unreported(x, feat, thr, leaf, depth, so):
+        import torch
+        from repro_torch.kernels.build import check_launch
+        (B, n, p), (S, T) = x.shape, feat.shape[1:3]
+        out = leaf.shape[-1]
+        y = torch.empty((B, S, n, out), device=x.device)
+        tc, npad = ops.tiling(B, S, T, n)
+        scratch = torch.empty((B * S * tc * npad if out > 1 else 0,),
+                              dtype=torch.int16, device=x.device)
+        rc = lib.tree_predict_launch(
+            x.data_ptr(), feat.data_ptr(), thr.data_ptr(), leaf.data_ptr(),
+            y.data_ptr(), scratch.data_ptr(), B, S, n, p, T, depth, out, tc,
+            npad, *(so or (0, 0, 0)),
+            torch.cuda.current_stream().cuda_stream)
+        check_launch("tree_predict", rc)
+        return y
 
     def run(x, feat, thr, leaf, depth):
         (B, n, p), (S, T) = x.shape, feat.shape[1:3]
         so = None
         if leaf.shape[-1] == 1:
             so = plan or ops.so_plan(B, S, T, depth, p, n)
-        return ops.launch(lib, x, feat, thr, leaf, depth, so)
+        if reports:
+            return ops.launch(lib, x, feat, thr, leaf, depth, so)[0]
+        return unreported(x, feat, thr, leaf, depth, so)
     return run
 
 

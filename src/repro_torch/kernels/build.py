@@ -18,7 +18,9 @@ kernel first at the same moment (an HTTP thread imputing while the serving
 scheduler dispatches) build it once, and the second loads what the first
 built. Temp files carry the process and thread id besides. The wrappers
 count their launches through :func:`count_launch`, under a lock of its own
-(a CUDA graph's capture records them, and each replay adds them).
+(a CUDA graph's capture records them, and each replay adds them);
+:func:`tallied_launches` also tallies those of one thread's block, such as
+one generate call's solve.
 :func:`events` counts the ``nvcc`` runs and the libraries loaded, per
 kernel (:mod:`repro_torch.analysis.runtime` budgets them over a region).
 """
@@ -162,10 +164,11 @@ def events() -> collections.Counter:
 
 def count_launch(wrapper, *also: str) -> None:
     """Add one to ``wrapper.launches``, the launch count of a kernel's
-    wrapper, and to each counter named in ``also`` (a kind of launch), under
-    a lock: the wrappers are called from many threads. Inside
-    :func:`recorded_launches` this thread's launches are recorded there
-    instead."""
+    wrapper, and one to each counter named in ``also`` (a kind of launch)
+    each time it is named, under a lock: the wrappers are called from many
+    threads. Inside :func:`recorded_launches` this thread's launches are
+    recorded there instead; inside :func:`tallied_launches` they are
+    tallied there too."""
     rec = getattr(_RECORDING, "counts", None)
     if rec is not None:
         for name in ("launches",) + also:
@@ -175,9 +178,14 @@ def count_launch(wrapper, *also: str) -> None:
         wrapper.launches += 1
         for name in also:
             setattr(wrapper, name, getattr(wrapper, name) + 1)
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        for name in ("launches",) + also:
+            tally[wrapper, name] += 1
 
 
 _RECORDING = threading.local()
+_TALLY = threading.local()
 
 
 @contextlib.contextmanager
@@ -193,12 +201,32 @@ def recorded_launches():
         _RECORDING.counts = None
 
 
+@contextlib.contextmanager
+def tallied_launches():
+    """Within the block, the launches this thread adds to the counters
+    (:func:`count_launch`, and a replay's :func:`add_launches`) are also
+    added to the yielded ``Counter`` of ``(wrapper, counter name)``, so a
+    caller can say what one piece of its work launched while other threads
+    launch too. A capture's recorded launches, which run nothing, are not
+    tallied."""
+    outer = getattr(_TALLY, "counts", None)
+    counts = _TALLY.counts = collections.Counter()
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+
+
 def add_launches(counts) -> None:
     """Add a :func:`recorded_launches` count to the counters, under the
-    lock of :func:`count_launch`."""
+    lock of :func:`count_launch`, and to this thread's
+    :func:`tallied_launches`."""
     with _COUNT_LOCK:
         for (wrapper, name), k in counts.items():
             setattr(wrapper, name, getattr(wrapper, name) + k)
+    tally = getattr(_TALLY, "counts", None)
+    if tally is not None:
+        tally.update(counts)
 
 
 def check_launch(name: str, rc: int) -> None:

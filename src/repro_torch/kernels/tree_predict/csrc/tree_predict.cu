@@ -1004,12 +1004,14 @@ extern "C" {
 // rounded up to 8) and sum_kernel adds them to y in tree order. out = 1:
 // so_kernel with the wrapper's plan (so_rows rows, so_rings rings, so_trees
 // trees a slice), or so_l1_kernel where so_rows is 0; no scratch. Shapes
-// are validated by the Python wrapper.
+// are validated by the Python wrapper. Each summing kernel launched adds
+// one to sums[0] (sum_tma_kernel) or sums[1] (sum_kernel), so the caller
+// learns which path this launcher chose without deciding it again.
 int tree_predict_launch(const float* x, const int* feat, const float* thr,
                         const float* leaf, float* y, uint16_t* scratch, int B,
                         int S, int n, int p, int T, int depth, int n_out,
                         int tc, int npad, int so_rows, int so_rings,
-                        int so_trees, void* stream_ptr) {
+                        int so_trees, void* stream_ptr, int* sums) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   cudaError_t err;
   if (n_out == 1)
@@ -1060,6 +1062,7 @@ int tree_predict_launch(const float* x, const int* feat, const float* thr,
         err = launch_sum<4, false>(leaf, scratch, y, B * S, n, T, t0, tcur,
                                    depth, n_out, npad, first, stream);
       if (err != cudaSuccess) return (int)err;
+      ++sums[tma ? 0 : 1];
     }
   }
   return 0;

@@ -9,6 +9,10 @@ calls that launched them (one call: a routing and a summing kernel per
 chunk of trees, or the fused SO kernel), so a run can show that its main
 path went through the kernel; ``forest_predict.so_ring_launches`` counts
 the SO calls whose plan (:func:`so_plan`) staged the trees in shared memory.
+``forest_predict.sum_tma_launches`` and ``.sum_plain_launches`` count the
+out > 1 summing kernels by kind, as the launcher reports them: the leaves
+fed by TMA (``sum_tma_kernel``, where a leaf row is 16-byte aligned) or by
+``cp.async`` from all threads (``sum_kernel``, e.g. at 533 outputs).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ SMEM_PER_BLOCK = 232_448  # shared memory a block may use on an H100
 SO_STAGES = 2             # csrc: kSoStages, slices a ring
 SO_WARPS = 15             # walking warps a block at most (csrc: kSoWarps - 1)
 SO_CHAINS = 4             # csrc: kSoChains, walks a thread keeps going
+# the launcher's report: summing launches fed by TMA, and by cp.async
+_SumLaunches = ctypes.c_int * 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,7 +42,8 @@ def _lib() -> ctypes.CDLL:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the launch functions' C signatures on a built library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.tree_predict_launch.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+    lib.tree_predict_launch.argtypes = ([ptr] * 6 + [i32] * 12
+                                        + [ptr, ctypes.POINTER(i32)])
     lib.tree_predict_launch.restype = i32
     return lib
 
@@ -127,9 +134,10 @@ _so_plan = functools.lru_cache(maxsize=1024)(so_plan)
 
 
 def launch(lib, x, feat, thr_val, leaf, depth: int, so=None):
-    """Launch the kernels of ``lib`` on checked CUDA tensors; returns y.
-    ``so``: the plan of an SO launch (:func:`so_plan`), None for the L1
-    kernel."""
+    """Launch the kernels of ``lib`` on checked CUDA tensors; returns
+    ``(y, (TMA summing launches, plain summing launches))``, the second as
+    the launcher reports them. ``so``: the plan of an SO launch
+    (:func:`so_plan`), None for the L1 kernel."""
     from repro_torch.kernels.build import check_launch
     B, n, p = x.shape
     S, T = feat.shape[1], feat.shape[2]
@@ -139,8 +147,9 @@ def launch(lib, x, feat, thr_val, leaf, depth: int, so=None):
                          f"depth <= {MAX_DEPTH} (uint16 leaf indices); the "
                          "CPU path takes any depth")
     y = torch.empty((B, S, n, n_out), dtype=torch.float32, device=x.device)
+    sums = _SumLaunches()
     if y.numel() == 0:
-        return y
+        return y, tuple(sums)
     tc, npad = tiling(B, S, T, n)
     scratch = torch.empty((B * S * tc * npad if n_out > 1 else 0,),
                           dtype=torch.int16, device=x.device)
@@ -149,9 +158,9 @@ def launch(lib, x, feat, thr_val, leaf, depth: int, so=None):
         rc = lib.tree_predict_launch(
             x.data_ptr(), feat.data_ptr(), thr_val.data_ptr(),
             leaf.data_ptr(), y.data_ptr(), scratch.data_ptr(), B, S, n, p,
-            T, depth, n_out, tc, npad, *(so or (0, 0, 0)), stream)
+            T, depth, n_out, tc, npad, *(so or (0, 0, 0)), stream, sums)
     check_launch("tree_predict", rc)
-    return y
+    return y, tuple(sums)
 
 
 def forest_predict(x, feat, thr_val, leaf, depth: int):
@@ -171,15 +180,26 @@ def forest_predict(x, feat, thr_val, leaf, depth: int):
     if leaf.shape[-1] == 1:
         B, n, p = x.shape
         so = _so_plan(B, feat.shape[1], feat.shape[2], depth, p, n)
-    y = launch(_lib(), x, feat, thr_val, leaf, depth, so)
+    y, (tma, plain) = launch(_lib(), x, feat, thr_val, leaf, depth, so)
     if y.numel():
         from repro_torch.kernels.build import count_launch
-        if so:
-            count_launch(forest_predict, "so_ring_launches")
-        else:
-            count_launch(forest_predict)
+        kinds = ["so_ring_launches"] if so else []
+        kinds += ["sum_tma_launches"] * tma + ["sum_plain_launches"] * plain
+        count_launch(forest_predict, *kinds)
     return y
 
 
 forest_predict.launches = 0
 forest_predict.so_ring_launches = 0
+forest_predict.sum_tma_launches = 0
+forest_predict.sum_plain_launches = 0
+
+
+def sum_launches(counts) -> dict:
+    """``{"sum_tma": k, "sum_plain": k}``: the summing launches of each kind
+    in a count of launches by ``(wrapper, counter)``, as
+    :func:`~repro_torch.kernels.build.recorded_launches` and
+    :func:`~repro_torch.kernels.build.tallied_launches` give it (0 and 0
+    for CPU work, which launches no kernel)."""
+    return {"sum_tma": counts[forest_predict, "sum_tma_launches"],
+            "sum_plain": counts[forest_predict, "sum_plain_launches"]}

@@ -15,9 +15,11 @@ Three stdlib-only pieces, copies of the JAX package's ``repro.obs``:
   :func:`repro_torch.tabgen.sampling.sample_async` and
   ``SampleHandle.result``; ``sample.solve`` carries ``steps``, the
   solver steps, ``lanes``, the sub-forests of an ensemble, ``trees``,
-  the trees of a sub-forest, and ``graph``: ``"eager"``, or for a
+  the trees of a sub-forest, ``graph``: ``"eager"``, or for a
   bucketed call on a CUDA device ``"capture"`` the first time and
-  ``"replay"`` after, :mod:`repro_torch.tabgen.solve_graph`) and
+  ``"replay"`` after, :mod:`repro_torch.tabgen.solve_graph`, and
+  ``sum_tma`` / ``sum_plain``: the multi-output summing kernels of the
+  solve by kind, as the ``tree_predict`` launcher reports them) and
   ``DatasetStore`` ingest, with optional
   JSONL export and a mirror of each scoped span into ``torch.profiler``
   as a ``record_function`` range of the same name

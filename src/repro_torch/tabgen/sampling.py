@@ -34,8 +34,10 @@ another thread than the issue: ``sample.issue`` (the whole of
 ``lanes``: the sub-forests of a (timestep, class) ensemble, ``n_sub``, 1
 for multi-output trees and ``p`` for single-output ones; ``trees``: T, the
 trees of a sub-forest; ``graph``: ``"eager"``, ``"capture"`` or
-``"replay"``, below; on a CUDA device the host enqueuing every step, or
-one graph's replay),
+``"replay"``, below; ``sum_tma`` / ``sum_plain``: the multi-output
+summing kernels the solve ran, by kind, as the ``tree_predict`` launcher
+reports them, a replay its capture's, 0 and 0 on the CPU; on a CUDA
+device the host enqueuing every step, or one graph's replay),
 ``sample.compact`` (``rows``; ``padding_rows``, the rows dropped on the
 device) and ``sample.copy`` (``bytes`` copied to the host);
 ``sample.result`` (``rows``) over ``sample.result.wait`` and
@@ -79,6 +81,8 @@ import torch.distributed as dist
 
 from repro_torch.core import interpolants as itp
 from repro_torch.forest.packed import PackedForest
+from repro_torch.kernels.build import tallied_launches
+from repro_torch.kernels.tree_predict.ops import sum_launches
 from repro_torch.obs import default_tracer
 from repro_torch.tabgen import solve_graph
 from repro_torch.tabgen.artifacts import (ForestArtifacts, class_span,
@@ -313,9 +317,16 @@ class SampleHandle:
         return self
 
     def result(self) -> Tuple[np.ndarray, np.ndarray]:
-        """``(X [n, p], y [n])``, once. ``X`` owns its memory: the caller
-        may keep it without holding the pinned buffer, which the caching
-        host allocator then hands to a later call."""
+        """``(X [n, p], y [n])``, once: the handle lets go of its rows as it
+        hands them over, and a second call raises ``RuntimeError``. ``X``
+        owns its memory: the caller may keep it without holding the pinned
+        buffer, which the caching host allocator then hands to a later
+        call."""
+        if self._x is None:
+            raise RuntimeError(
+                "SampleHandle.result() hands a call's rows over once, and "
+                "this handle's were already taken: keep the (X, y) that the "
+                "first result() returned")
         tracer, tid = default_tracer(), self.trace_id
         with tracer.span("sample.result", trace_id=tid) as sp:
             with tracer.span("sample.result.wait", trace_id=tid):
@@ -445,7 +456,8 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
                              steps=fcfg.n_t - 1,
                              lanes=artifacts.feat.shape[2],
                              trees=artifacts.feat.shape[3],
-                             graph="eager") as ss:
+                             graph="eager") as ss, \
+                    tallied_launches() as launched:
                 if graph is not None:
                     ss.attrs["graph"] = "replay"
                     x_all = graph.replay(x1_all)
@@ -459,6 +471,7 @@ def sample_async(artifacts: ForestArtifacts, n: int, *,
                     x_all = solve_sharded(artifacts, mesh, ts, m=m,
                                           solver_fn=spec.fn, x1=x1,
                                           generator=generator)
+                ss.attrs.update(sum_launches(launched))
             with tracer.span("sample.compact", trace_id=tid, rows=n,
                              padding_rows=n_y * m - n):
                 x, y = compact(x_all, per_class,

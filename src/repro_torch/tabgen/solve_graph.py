@@ -118,7 +118,11 @@ class SolveGraph:
 
     def replay(self, x1: torch.Tensor) -> torch.Tensor:
         """The solve of ``x1`` on the current stream: ``out``, which the
-        next replay overwrites. Call inside :meth:`use`."""
+        next replay overwrites. Call inside :meth:`use`. The launches the
+        capture recorded, summing kernels by kind among them, are added to
+        the counters and to this thread's
+        :func:`~repro_torch.kernels.build.tallied_launches`, so a replayed
+        call's ``sample.solve`` span reports its capture's."""
         self.x1.copy_(x1)
         self.graph.replay()
         add_launches(self.launches)

@@ -282,6 +282,18 @@ def test_result_rows_own_their_memory(flow_so, monkeypatch, pool):
     assert not np.array_equal(X1, X2)
 
 
+def test_a_second_result_names_the_one_shot_contract():
+    """A handle hands its rows over once and lets go of them: a second
+    ``result()`` raises an error that says so, not an ``AttributeError``
+    from deep inside the copy."""
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    h = TS.SampleHandle(x, np.arange(4))
+    X, y = h.result()
+    np.testing.assert_array_equal(X, x.numpy())
+    with pytest.raises(RuntimeError, match="rows over once"):
+        h.result()
+
+
 def test_registry_mirrors_jax():
     for name in jsamplers.list_samplers():
         j, t = jsamplers.get_sampler(name), tsamplers.get_sampler(name)

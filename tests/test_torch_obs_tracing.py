@@ -4,14 +4,18 @@
 * Every generate call records eight ``sample.*`` spans into
   ``repro_torch.obs.default_tracer()``, nested as ``tabgen/sampling.py``
   documents, under one trace id a call, also when ``result()`` runs on
-  another thread.
+  another thread. ``sample.solve`` counts the summing launches of its
+  solve by kind, a replayed solve its capture's.
 * ``Tracer(torch_annotations=...)`` / ``REPRO_OBS_TORCH_TRACE``: off, a
   profiler capture holds no ``sample.*`` range; on, it holds each scoped
   span as a range of the same name, nested as the spans are, and no
   cross-thread span.
 """
+import collections
+import contextlib
 import dataclasses
 import threading
+import types
 
 import numpy as np
 import pytest
@@ -21,10 +25,11 @@ from torch.profiler import ProfilerActivity, profile
 
 import repro_torch.obs as obs
 from repro_torch.config import ForestConfig
+from repro_torch.kernels.tree_predict.ops import forest_predict
 from repro_torch.launch.mesh import forest_mesh
 from repro_torch.obs import Tracer, default_tracer
 from repro_torch.tabgen import (TabularGenerator, artifacts_from_numpy,
-                                sample_labels)
+                                sample_labels, solve_graph)
 
 N_T = 4
 PARENT = {"sample.x1": "sample.issue", "sample.solve": "sample.issue",
@@ -119,14 +124,67 @@ def test_the_solve_span_counts_lanes_and_trees(multi_output, lanes):
     """``sample.solve`` carries the sub-forests of an ensemble (``lanes``:
     p for single-output trees, 1 for multi-output ones) and the trees of
     each (``trees``), beside ``steps``; ``graph`` reads ``eager``, since
-    only a CUDA device replays a captured solve."""
+    only a CUDA device replays a captured solve; ``sum_tma`` and
+    ``sum_plain`` read 0, since the CPU launches no summing kernel."""
     g = make_gen(multi_output)
     X, tid = call(g, "generate_async")
     solve, = [s for s in default_tracer().trace(tid)
               if s.name == "sample.solve"]
     assert solve.attrs == {"steps": N_T - 1, "lanes": lanes, "trees": 2,
-                           "graph": "eager"}
+                           "graph": "eager", "sum_tma": 0, "sum_plain": 0}
     assert X.shape == (11, 4)
+
+
+class _CountingGraph(solve_graph.SolveGraph):
+    """A captured solve on the CPU, where no CUDA graph is: the capture
+    solves eagerly into ``out`` and records the summing launches a card's
+    capture of an unaligned width would (one plain launch a step, with
+    one TMA launch besides, so the two counts differ); its replay is
+    :meth:`SolveGraph.replay`, with a graph launch that runs nothing."""
+
+    RECORDED = collections.Counter({
+        (forest_predict, "launches"): 2 * (N_T - 1),
+        (forest_predict, "sum_plain_launches"): N_T - 1,
+        (forest_predict, "sum_tma_launches"): 1})
+
+    def __init__(self, x1, out):
+        self.graph = types.SimpleNamespace(replay=lambda: None)
+        self.x1, self.out, self.launches = x1, out, self.RECORDED
+
+    @classmethod
+    def capture(cls, solve, x1, ts):
+        return cls(x1.clone(), solve(x1.clone()))
+
+    def use(self):
+        return contextlib.nullcontext()
+
+
+def test_a_replayed_solve_reports_its_captures_summing_launches(
+        monkeypatch):
+    """The first bucketed call captures (its eager solve launched nothing
+    on the CPU: 0 and 0); the second replays and reports the launches the
+    capture recorded, which the replay also adds to the counters."""
+    key_of = solve_graph.graph_key
+    monkeypatch.setattr(solve_graph, "graph_key",
+                        lambda device, **kw: key_of("cuda", **kw))
+    monkeypatch.setattr(solve_graph, "SolveGraph", _CountingGraph)
+    monkeypatch.setattr(forest_predict, "sum_plain_launches", 0)
+    monkeypatch.setattr(forest_predict, "sum_tma_launches", 0)
+    monkeypatch.setattr(forest_predict, "launches", 0)
+    g = make_gen(multi_output=True)
+    seen = []
+    for seed in (1, 2):
+        h = g.generate_async(11, seed=seed, pad_to=8)
+        h.result()
+        solve, = [s for s in default_tracer().trace(h.trace_id)
+                  if s.name == "sample.solve"]
+        seen.append({k: solve.attrs[k]
+                     for k in ("graph", "sum_tma", "sum_plain")})
+    assert seen == [
+        {"graph": "capture", "sum_tma": 0, "sum_plain": 0},
+        {"graph": "replay", "sum_tma": 1, "sum_plain": N_T - 1}]
+    assert (forest_predict.sum_tma_launches,
+            forest_predict.sum_plain_launches) == (1, N_T - 1)
 
 
 def test_a_mesh_call_draws_x1_inside_its_solve(gen, tmp_path):

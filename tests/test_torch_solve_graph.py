@@ -259,26 +259,31 @@ def test_a_call_on_another_stream_equals_its_eager_rows(card):
 @pytest.mark.parametrize("multi_output", [True, False], ids=["mo", "so"])
 def test_replays_count_the_launches_they_run(card, multi_output):
     """The capture's call counts its eager solve once (the capture runs
-    nothing); each replay counts what an eager call counts."""
+    nothing); each replay counts what an eager call counts, the summing
+    launches by kind among them (p = 16: one TMA-fed summing launch a MO
+    step, none for SO)."""
     art = make_artifacts(card, multi_output=multi_output)
 
     def counts():
-        return forest_predict.launches, forest_predict.so_ring_launches
+        return np.array([forest_predict.launches,
+                         forest_predict.so_ring_launches,
+                         forest_predict.sum_tma_launches,
+                         forest_predict.sum_plain_launches])
 
     c0 = counts()
     sample(dataclasses.replace(art), 100, seed=3, pad_to=64)
     c1 = counts()
-    per_call = (c1[0] - c0[0], c1[1] - c0[1])
+    per_call = c1 - c0
     assert per_call[0] == N_T - 1
+    assert list(per_call[2:]) == [(N_T - 1) * multi_output, 0]
     sample(art, 100, seed=3, pad_to=64)                 # eager + capture
     c2 = counts()
-    assert (c2[0] - c1[0], c2[1] - c1[1]) == per_call
+    assert list(c2 - c1) == list(per_call)
     replays = 5
     for s in range(replays):
         sample(art, 100, seed=s, pad_to=64)
     c3 = counts()
-    assert (c3[0] - c2[0], c3[1] - c2[1]) == tuple(
-        replays * k for k in per_call)
+    assert list(c3 - c2) == list(replays * per_call)
 
 
 @pytest.mark.cuda
@@ -300,6 +305,13 @@ def test_the_span_reads_capture_once_then_replay(card, monkeypatch):
     assert solve_graphs(calls) == [
         "capture", "replay", "replay", "eager", "capture", "capture",
         "capture", "replay", "eager", "eager"]
+    # every call, replayed or not, ran one TMA-fed summing launch a step
+    # (p = 16), as the launcher reported it: a replay its capture's
+    for h in calls:
+        solve, = [s for s in default_tracer().trace(h.trace_id)
+                  if s.name == "sample.solve"]
+        assert (solve.attrs["sum_tma"], solve.attrs["sum_plain"]) == (
+            N_T - 1, 0)
 
 
 @pytest.mark.cuda
